@@ -1,0 +1,75 @@
+"""Build the hand-written CUDA kernels with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
+into ``build/kernels/lib<name>-<hash>.so`` at the repository root (a
+directory git ignores), the hash covering the source and the flags, so an
+edited source builds anew. Sources build only from this checkout, at first
+use; nothing is built when a module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+KERNELS = ("composite_fwd",)
+
+
+def nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{h}.so"
+
+
+def build(names=KERNELS) -> dict:
+    """Compile every named source that has no library yet, one nvcc each,
+    all started together. Returns {name: (library path, seconds, ptxas
+    report)}; raises with nvcc's output if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        procs[name] = (subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, out)
+    report = {name: (library_path(name), 0.0, "cached") for name in names}
+    errors = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, out)
+        report[name] = (out, time.perf_counter() - t0, log)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return report
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library, built first if needed."""
+    build((name,))
+    return ctypes.CDLL(str(library_path(name)))

@@ -1,0 +1,55 @@
+"""General host utilities: device resolution, seeding, stdout timestamps."""
+from __future__ import annotations
+
+import random
+import sys
+from datetime import datetime
+
+import numpy as np
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``. Raises when CUDA is asked for and
+    absent: the port never carries on quietly on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but CUDA is not available; "
+            "pass device='cpu' to run on the CPU")
+    return dev
+
+
+def full_f32_matmul() -> None:
+    """Keep float32 products in full float32 on the card. PyTorch's default
+    for matmuls is already so, but cuDNN's is TF32 (about three decimal
+    digits), and the render path's tolerances against the JAX reference
+    (which runs these products at HIGHEST precision) assume full f32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def safe_state(silent: bool = False, seed: int = 0):
+    """Seed the Python, numpy and torch RNGs and timestamp stdout lines."""
+    old_f = sys.stdout
+
+    class F:
+        def __init__(self, silent):
+            self.silent = silent
+
+        def write(self, x):
+            if not self.silent:
+                if x.endswith("\n"):
+                    old_f.write(x.replace(
+                        "\n", " [{}]\n".format(
+                            datetime.now().strftime("%d/%m %H:%M:%S"))))
+                else:
+                    old_f.write(x)
+
+        def flush(self):
+            old_f.flush()
+
+    sys.stdout = F(silent)
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)

@@ -1,0 +1,79 @@
+"""Port parity: core transforms, SH and CameraView against the JAX package,
+rtol 1e-5 / atol 1e-6."""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from gsplat_tpu.core import sh as jsh
+from gsplat_tpu.core import transforms as jtf
+from gsplat_tpu.core.camera import CameraView as JaxCameraView
+from gsplat_tpu_torch.core import sh as tsh
+from gsplat_tpu_torch.core import transforms as ttf
+from gsplat_tpu_torch.core.camera import CameraView
+
+from torch_parity import CAM_FIELDS, t2n, to_numpy
+
+TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def test_transforms_match_jax(rng):
+    q = rng.standard_normal((64, 4)).astype(np.float32)
+    s = rng.uniform(0.01, 2.0, (64, 3)).astype(np.float32)
+    np.testing.assert_allclose(
+        t2n(ttf.quat_to_rotmat(torch.tensor(q))),
+        np.asarray(jtf.quat_to_rotmat(jnp.asarray(q))), **TOL)
+    for mod in (1.0, 0.7):
+        np.testing.assert_allclose(
+            t2n(ttf.covariance_from_scaling_rotation(
+                torch.tensor(s), mod, torch.tensor(q))),
+            np.asarray(jtf.covariance_from_scaling_rotation(
+                jnp.asarray(s), mod, jnp.asarray(q))), **TOL)
+    x = rng.uniform(0.01, 0.99, 32).astype(np.float32)
+    np.testing.assert_allclose(t2n(ttf.inverse_sigmoid(torch.tensor(x))),
+                               np.asarray(jtf.inverse_sigmoid(jnp.asarray(x))),
+                               **TOL)
+    R = np.linalg.qr(rng.standard_normal((3, 3)))[0]
+    T = rng.standard_normal(3)
+    trans = rng.standard_normal(3)
+    np.testing.assert_array_equal(ttf.world_to_view(R, T, trans, 1.3),
+                                  jtf.world_to_view(R, T, trans, 1.3))
+    np.testing.assert_array_equal(ttf.projection_matrix(0.01, 100.0, 0.9, 0.7),
+                                  jtf.projection_matrix(0.01, 100.0, 0.9, 0.7))
+    assert ttf.fov2focal(0.9, 640) == jtf.fov2focal(0.9, 640)
+    assert ttf.focal2fov(500.0, 640) == jtf.focal2fov(500.0, 640)
+
+
+@pytest.mark.parametrize("deg", [0, 1, 2, 3, 4])
+def test_sh_matches_jax(rng, deg):
+    d = rng.standard_normal((50, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    K = (deg + 1) ** 2
+    coeffs = rng.standard_normal((50, 3, K)).astype(np.float32)
+    np.testing.assert_allclose(t2n(tsh.sh_basis(deg, torch.tensor(d))),
+                               np.asarray(jsh.sh_basis(deg, jnp.asarray(d))),
+                               **TOL)
+    np.testing.assert_allclose(
+        t2n(tsh.eval_sh(deg, torch.tensor(coeffs), torch.tensor(d))),
+        np.asarray(jsh.eval_sh(deg, jnp.asarray(coeffs), jnp.asarray(d))),
+        **TOL)
+    rgb = rng.uniform(0, 1, (10, 3)).astype(np.float32)
+    np.testing.assert_allclose(t2n(tsh.rgb2sh(torch.tensor(rgb))),
+                               np.asarray(jsh.rgb2sh(jnp.asarray(rgb))), **TOL)
+    np.testing.assert_allclose(t2n(tsh.sh2rgb(torch.tensor(rgb))),
+                               np.asarray(jsh.sh2rgb(jnp.asarray(rgb))), **TOL)
+
+
+def test_camera_view_create_matches_jax(rng):
+    R = np.linalg.qr(rng.standard_normal((3, 3)))[0]
+    T = rng.standard_normal(3)
+    kw = dict(znear=0.05, zfar=50.0, trans=np.array([0.1, -0.2, 0.3]),
+              scale=1.5, exposure_idx=3)
+    cj = JaxCameraView.create(R, T, 0.8, 0.6, **kw)
+    ct = CameraView.create(R, T, 0.8, 0.6, device="cpu", **kw)
+    want = to_numpy(cj, CAM_FIELDS)
+    for k in CAM_FIELDS:
+        got = getattr(ct, k)
+        got = got if isinstance(got, int) else t2n(got)
+        np.testing.assert_allclose(got, want[k], err_msg=k, **TOL)
