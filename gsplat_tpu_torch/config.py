@@ -2,8 +2,9 @@
 
 Same flag names, shorthands and defaults as the JAX package, and the same
 ``cfg_args.json`` snapshot format, so a model directory trained by either
-package renders with the other. Only the groups and fields the render path
-reads are kept; ``load_cfg`` skips groups and fields it does not know.
+package renders with the other. Only the groups and fields the render and
+training paths read are kept; ``load_cfg`` skips groups and fields it does
+not know.
 """
 from __future__ import annotations
 
@@ -40,6 +41,36 @@ class PipelineConfig:
     compute_cov3D_python: bool = False # feed covariances through cov3d_precomp
     debug: bool = False
     antialiasing: bool = False
+
+
+@dataclass(frozen=True)
+class OptimizationConfig:
+    """The reference's optimization defaults (opacity_lr is the code's
+    0.025, not the 0.05 its README documents)."""
+    iterations: int = 30_000
+    position_lr_init: float = 0.00016
+    position_lr_final: float = 0.0000016
+    position_lr_delay_mult: float = 0.01
+    position_lr_max_steps: int = 30_000
+    feature_lr: float = 0.0025
+    opacity_lr: float = 0.025
+    scaling_lr: float = 0.005
+    rotation_lr: float = 0.001
+    exposure_lr_init: float = 0.01
+    exposure_lr_final: float = 0.001
+    exposure_lr_delay_steps: int = 0
+    exposure_lr_delay_mult: float = 0.0
+    percent_dense: float = 0.01
+    lambda_dssim: float = 0.2
+    densification_interval: int = 100
+    opacity_reset_interval: int = 3000
+    densify_from_iter: int = 500
+    densify_until_iter: int = 15_000
+    densify_grad_threshold: float = 0.0002
+    depth_l1_weight_init: float = 1.0
+    depth_l1_weight_final: float = 0.01
+    random_background: bool = False
+    optimizer_type: str = "default"  # "default" | "sparse_adam"
 
 
 COMPOSITORS = ("stream", "chunk")
@@ -107,11 +138,13 @@ def extract(dc_type, args: argparse.Namespace):
 
 def add_model_args(parser): _add_dataclass_args(parser, ModelConfig)
 def add_pipeline_args(parser): _add_dataclass_args(parser, PipelineConfig)
+def add_optimization_args(parser):
+    _add_dataclass_args(parser, OptimizationConfig)
 def add_rasterizer_args(parser): _add_dataclass_args(parser, RasterizerConfig)
 
 
 _GROUPS = {"model": ModelConfig, "pipeline": PipelineConfig,
-           "rasterizer": RasterizerConfig}
+           "optimization": OptimizationConfig, "rasterizer": RasterizerConfig}
 
 
 def load_cfg(model_path: str) -> dict:

@@ -13,11 +13,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from gsplat_tpu_torch.core import sh as sh_lib
 from gsplat_tpu_torch.core import transforms
 from gsplat_tpu_torch.utils.general import resolve_device
 
 TENSOR_FIELDS = ("xyz", "f_dc", "f_rest", "scaling", "rotation", "opacity",
                  "active")
+# the float fields that receive gradients (the reference's param groups)
+TRAINABLE_FIELDS = ("xyz", "f_dc", "f_rest", "scaling", "rotation", "opacity")
 
 
 @dataclass
@@ -65,6 +68,19 @@ class GaussianParams:
     def num_active(self) -> int:
         return int(self.active.sum())
 
+    def one_up_sh_degree(self) -> "GaussianParams":
+        return dataclasses.replace(
+            self, active_sh_degree=min(self.active_sh_degree + 1,
+                                       self.max_sh_degree))
+
+
+def trainables(g: GaussianParams) -> dict:
+    return {k: getattr(g, k) for k in TRAINABLE_FIELDS}
+
+
+def with_trainables(g: GaussianParams, t: dict) -> GaussianParams:
+    return dataclasses.replace(g, **t)
+
 
 def empty(capacity: int, max_sh_degree: int, *, device="cuda") -> GaussianParams:
     """All-dead buffers: tiny, transparent, at the origin."""
@@ -82,6 +98,31 @@ def empty(capacity: int, max_sh_degree: int, *, device="cuda") -> GaussianParams
         opacity=torch.full((capacity,), -10.0, **f32),
         active=torch.zeros((capacity,), dtype=torch.bool, device=dev),
         active_sh_degree=0)
+
+
+def create_from_pcd(points: np.ndarray, colors: np.ndarray,
+                    max_sh_degree: int, capacity: int | None = None, *,
+                    device="cuda") -> GaussianParams:
+    """Initialise from a point cloud: colors to the SH DC term (higher
+    coefficients zero), log-scale = log sqrt(mean squared distance to the 3
+    nearest neighbours) on every axis (floored at 1e-7), identity
+    quaternion, opacity 0.1. Rows past the points are dead slots."""
+    from gsplat_tpu_torch.ops.knn import mean_sq_dist_to_3nn
+
+    n = points.shape[0]
+    cap = capacity or n
+    if cap < n:
+        raise ValueError(f"capacity {cap} < {n} points")
+    g = empty(cap, max_sh_degree, device=device)
+    pts = torch.tensor(np.asarray(points, np.float32), device=g.device)
+    dist2 = torch.clamp(mean_sq_dist_to_3nn(pts), min=1e-7)
+    g.xyz[:n] = pts
+    g.f_dc[:n] = sh_lib.rgb2sh(torch.tensor(np.asarray(colors, np.float32),
+                                            device=g.device))
+    g.scaling[:n] = torch.log(torch.sqrt(dist2))[:, None]
+    g.opacity[:n] = transforms.inverse_sigmoid(torch.tensor(0.1))
+    g.active[:n] = True
+    return g
 
 
 def from_numpy(arrays: dict, *, device="cuda",

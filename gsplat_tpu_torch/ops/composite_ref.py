@@ -1,10 +1,12 @@
 """Plain PyTorch tile compositor: the CPU route, the differentiable oracle,
-and the version the CUDA kernel (ops/kernels/csrc/composite_fwd.cu) is
-held to. Counterpart of gsplat_tpu/ops/composite_ref.py
+and the version the CUDA kernels are held to (ops/kernels/csrc/
+composite_fwd.cu, and composite_bwd.cu through autograd). Counterpart of gsplat_tpu/ops/composite_ref.py
 (``composite_tiles_xla``), with the same semantics:
 
 - alpha = min(alpha_max, op·exp(min(power, 0))), skipped unless
-  alpha ≥ alpha_min and power ≤ 0;
+  alpha ≥ alpha_min and power ≤ 0; its gradient is that of op·exp(power)
+  even where the clamp holds, as in JAX's TPU backward kernel and the CUDA
+  one (autodiff through ``composite_tiles_xla`` gives 0 there instead);
 - front to back, a pixel stops at the first entry with T·(1−α) < t_eps,
   tested *before* that entry is committed (it does not contribute);
 - n_contrib = 1 + the in-tile rank of the last contributor.
@@ -76,8 +78,10 @@ def composite_tiles_plain(entries: torch.Tensor,     # (M, 16) packed rows
         dx = pxl - mxl                                       # (L,G,P)
         dy = pyl - myl
         power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-        alpha = torch.clamp(op * torch.exp(torch.clamp(power, max=0.0)),
-                            max=alpha_max)
+        alpha_raw = op * torch.exp(torch.clamp(power, max=0.0))
+        # min(alpha_raw, alpha_max) in value; the gradient passes straight
+        # through the clamp, as in the TPU and CUDA backward kernels
+        alpha = alpha_raw - (alpha_raw - alpha_max).clamp(min=0.0).detach()
         live = valid[..., None] & (alpha >= alpha_min) & (power <= 0.0)
         a1 = torch.where(live, alpha, torch.zeros_like(alpha))
 

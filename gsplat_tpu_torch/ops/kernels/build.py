@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/kernels/lib<name>-<hash>.so`` at the repository root (a
-directory git ignores), the hash covering the source and the flags, so an
-edited source builds anew. Sources build only from this checkout, at first
-use; nothing is built when a module is imported.
+directory git ignores), the hash covering the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source builds anew. Sources
+build only from this checkout, at first use; nothing is built when a module
+is imported.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-KERNELS = ("composite_fwd",)
+KERNELS = ("composite_fwd", "composite_bwd", "ssim_fwd", "ssim_bwd")
 
 
 def nvcc() -> str:
@@ -33,7 +34,8 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{h}.so"
 

@@ -2,10 +2,13 @@
 tiles to image, background, exposure, clamp. Counterpart of
 gsplat_tpu/ops/rasterize.py ``render``.
 
-Everything runs on the device the gaussians lie on. On the CPU the
-compositor is the plain PyTorch version and the whole path is
-differentiable; on the card it is the hand-written CUDA kernel, which is
-forward-only for now (render under ``torch.no_grad()``).
+Everything runs on the device the gaussians lie on, and the whole path is
+differentiable on either: on the CPU the compositor is the plain PyTorch
+version under autograd; on the card it is the hand-written CUDA forward
+kernel, whose gradient is the CUDA backward kernel. The entry gather's
+gradient is ``index_add_``, which carries every entry row back to its
+gaussian's packed row; on the card it adds with atomics, in an order that
+varies from run to run.
 """
 from __future__ import annotations
 
@@ -119,9 +122,14 @@ def build_entries(gaussians: GaussianParams, cam: CameraView,
         image_height=H, tile_h=cfg.tile_h, tile_w=cfg.tile_w, m_cap=m_cap,
         align=cfg.chunk, pad_cap=None if cfg.pad_cap < 0 else cfg.pad_cap)
     # per-gaussian rows in the binning's depth order; the extra row keeps
-    # the sentinel (= zero row) addressable
+    # the sentinel (= zero row) addressable. index_select, whose gradient
+    # is index_add_ (atomic adds): indexing with [] differentiates into
+    # index_put_ with accumulation, which sorts the indices and then walks
+    # each one's duplicates serially, and every dead slot of the layout
+    # addresses the one sentinel row
     perm_ext = torch.cat([b.perm, b.perm.new_full((1,), cap)])
-    entries = pack_entries(pre)[perm_ext][b.gidx_sorted]
+    entries = pack_entries(pre).index_select(0, perm_ext).index_select(
+        0, b.gidx_sorted)
     return Entries(pre=pre, binning=b, entries=entries,
                    n_tiles_x=n_tiles_x, n_tiles_y=n_tiles_y)
 

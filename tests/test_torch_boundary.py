@@ -41,6 +41,8 @@ def test_port_imports_no_jax_and_no_gsplat_tpu():
     assert res["bad"] == []
     for mod in ("gsplat_tpu_torch.ops.rasterize",
                 "gsplat_tpu_torch.ops.kernels.composite",
+                "gsplat_tpu_torch.ops.kernels.ssim",
+                "gsplat_tpu_torch.train.trainer",
                 "gsplat_tpu_torch.cli.render", "gsplat_tpu_torch.scene"):
         assert mod in res["modules"]
 
@@ -66,6 +68,9 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         lambda **kw: CameraView.create(*cam_args, **kw),
         lambda **kw: gm.from_numpy(arrays, **kw),
         lambda **kw: gm.empty(4, 1, **kw),
+        lambda **kw: gm.create_from_pcd(np.eye(4, 3, dtype=np.float32),
+                                        np.zeros((4, 3), np.float32), 1,
+                                        **kw),
         lambda **kw: mini.view(**kw),
     ]
     for fn in entry_points:

@@ -66,3 +66,20 @@ def configs(tile_h, tile_w, chunk, **kw):
 
 def t2n(x):
     return x.detach().cpu().numpy()
+
+
+STATS_FIELDS = ("xyz_gradient_accum", "denom", "max_radii2d")
+
+
+def state_to_numpy(state):
+    """A JAX TrainState as the numpy arrays gsplat_tpu_torch's
+    ``trainer.state_from_numpy`` takes."""
+    def adam(a):
+        return dict(mu={k: np.asarray(v) for k, v in a.mu.items()},
+                    nu={k: np.asarray(v) for k, v in a.nu.items()},
+                    count=int(a.count))
+    return dict(gaussians=to_numpy(state.gaussians, PARAM_FIELDS),
+                adam=adam(state.adam), exposure=np.asarray(state.exposure),
+                exp_adam=adam(state.exp_adam),
+                stats=to_numpy(state.stats, STATS_FIELDS),
+                step=int(state.step))
