@@ -14,6 +14,14 @@ Phases, each printing its own line:
    compositor backward (on 16 tiles of the phase-5 frame) against autograd
    through the plain compositor, the SSIM map and its backward at
    3x1920x1080 against the plain SSIM; each kernel timed by CUDA events;
+3c. the depth-slab and tile-band forms of the kernels against their plain
+   versions, on the phase-5 frame's entries split into 4 depth slabs: the
+   compositor with a random ``t_init``, with slab 2's real arriving
+   transmittance, and with the ``tile_id_base`` of band 1 of 2; the slab
+   transmittance against its plain version and against the compositor's
+   cut-free t_final; the compositor backward on 16 tiles of slab 1 from
+   its ``t_init`` forward under non-zero cotangents of accum and t_final,
+   and again with a ``tile_id_base``;
 4. the render path at full width: bench.py's workload — 200,000 gaussians,
    SH degree 3, 1920x1080 — written to a PLY, loaded back through the port's
    loader, and rendered from 5 camera poses under torch.no_grad(), with the
@@ -22,8 +30,15 @@ Phases, each printing its own line:
    (create_from_pcd, 200,000 gaussians, SH 3, 1920x1080, default
    OptimizationConfig, dense Adam): one warm-up step, then 5 timed steps
    with every kernel's launch count read around exactly those steps, and
-   one profiled step.
-Then a ``kernels`` JSON line, the nvidia-smi line, and a final JSON line.
+   one profiled step;
+6. the depth-slab and tile-band paths at full width, on the phase-5 scene:
+   ``render_prim_sharded`` with 4 slabs from the 5 poses under
+   torch.no_grad() and one forward plus backward of an L1 loss, held to
+   the single render and its gradient, with the launch counts read around
+   exactly those; ``render_tile_sharded`` with 2 bands, held to the single
+   render; one profiled slab render.
+Then a ``kernels`` JSON line with one object per kernel of the KERNELS
+table, the nvidia-smi line, and a final JSON line.
 Any failure raises and exits non-zero; without CUDA it exits non-zero
 before printing any result.
 """
@@ -42,11 +57,14 @@ from gsplat_tpu_torch.core.camera import CameraView
 from gsplat_tpu_torch.models import gaussian_model as gm
 from gsplat_tpu_torch.ops import knn, rasterize
 from gsplat_tpu_torch.ops import ssim as ssim_lib
-from gsplat_tpu_torch.ops.composite_ref import composite_tiles_plain
+from gsplat_tpu_torch.ops.composite_ref import (composite_tiles_plain,
+                                                slab_transmittance_plain)
 from gsplat_tpu_torch.ops.kernels import build
 from gsplat_tpu_torch.ops.kernels.composite import (composite_bwd_cuda,
-                                                    composite_fwd_cuda)
+                                                    composite_fwd_cuda,
+                                                    slab_transmittance_cuda)
 from gsplat_tpu_torch.ops.kernels.ssim import ssim_bwd_cuda, ssim_fwd_cuda
+from gsplat_tpu_torch.parallel import prim_shard, tile_shard
 from gsplat_tpu_torch.scene import ply as ply_lib
 from gsplat_tpu_torch.train import trainer
 
@@ -59,11 +77,21 @@ IMG_TOL = dict(rtol=2e-4, atol=2e-5)   # the JAX suite's image gate
 GRAD_TOL = dict(rtol=5e-3, atol=1e-6)  # the JAX suite's gradient gate
 SSIM_TOL = dict(rtol=1e-5, atol=1e-6)
 SSIM_GRAD_TOL = dict(rtol=2e-4, atol=1e-6)   # tests/test_train.py:225
+SLAB_TOL = dict(rtol=1e-5, atol=1e-6)        # tests/test_rasterize.py:399
+# the slab render's gradient against the single render's, element by
+# element; and, since the mean-L1 loss of a 1080p frame leaves most
+# gradients below that atol, the largest error of a field over its largest
+# gradient
+SLAB_GRAD_TOL = dict(rtol=1e-2, atol=1e-5)
+SLAB_GRAD_REL_MAX = 1e-4
+N_SLABS = 4
+N_BANDS = 2
 # published H100 SXM peaks (NVIDIA data sheet), for the bound
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 OPS_PER_EVAL = 21          # ~20 f32 operations + 1 exp per (pair, pixel)
 OPS_PER_EVAL_BWD = 60      # the backward's ~59 f32 operations + 1 exp
+OPS_PER_EVAL_TMIT = 18     # the alpha alone (16 + 1 exp) and one product
 # f32 operations per pixel: SSIM map = 3 products + 5 blurs x 2 passes x
 # 21 + ~20 for the map; backward = the same fields again + ~20 for the t
 # maps + 3 blurs x 42 + 4 to combine
@@ -136,16 +164,16 @@ def poses(device):
     return out
 
 
-def profile_frame(g, cam, bg, cfg):
-    """Where one frame's device time goes: torch.profiler's device time by
+def profile_call(label, fn, n_top=12):
+    """Where one call's device time goes: torch.profiler's device time by
     kernel (device-side events only, so nothing counts twice), against the
-    frame's host-clock time under the profiler."""
+    call's host-clock time under the profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
-                                              ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        rasterize.render(g, cam, W, H, bg, cfg)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
@@ -153,10 +181,46 @@ def profile_frame(g, cam, bg, cfg):
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0), reverse=True)
     busy_ms = sum(r[0] for r in rows)
+    n_ops = sum(r[1] for r in rows)
     top = "; ".join(f"{key[:70]} x{n} {ms:.3f} ms"
-                    for ms, n, key in rows[:12])
-    print(f"profile one frame: wall {wall_ms:.3f} ms under the profiler, "
-          f"device busy {busy_ms:.3f} ms; top: {top}", flush=True)
+                    for ms, n, key in rows[:n_top])
+    print(f"profile {label}: wall {wall_ms:.3f} ms under the profiler, "
+          f"device busy {busy_ms:.3f} ms in {n_ops} device ops; top: {top}",
+          flush=True)
+
+
+def bound(n_bytes, ops):
+    """The least time the card could take: the larger of the bytes over
+    its memory rate and the f32 operations over its peak rate."""
+    b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(b_ms, o_ms),
+                bound_by="operations" if o_ms >= b_ms else "bytes")
+
+
+def fwd_work(tile_count, n_contrib, has_t_init=False):
+    """What one compositor forward launch must do, as (rows, evals, bytes):
+    bytes = the entry rows in tile ranges (columns 0-9) + tile tables +
+    outputs (+ t_init); evals = the (pair, pixel) evaluations up to each
+    pixel's last contributor (a lower bound), OPS_PER_EVAL operations
+    each."""
+    T, P = n_contrib.shape
+    rows = int(tile_count.long().sum())
+    return (rows, int(n_contrib.long().sum()),
+            rows * 40 + T * 8 + T * P * (24 + 4 * has_t_init))
+
+
+def bwd_work(n_rows, tile_count, n_contrib):
+    """What one compositor backward launch must do, as (rows, evals,
+    bytes): 40 B in for each entry row up to its tile's largest n_contrib +
+    64 B out for every row of d_entries + tables + 28 B per pixel
+    (cotangents, t_final, n_contrib); evals as the forward's,
+    OPS_PER_EVAL_BWD operations each."""
+    T, P = n_contrib.shape
+    rows = int(torch.minimum(tile_count.long(),
+                             n_contrib.long().amax(dim=1)).sum())
+    return (rows, int(n_contrib.long().sum()),
+            rows * 40 + n_rows * 64 + T * 8 + T * P * (16 + 4 + 4 + 4))
 
 
 def bench_train_setup(dev):
@@ -185,12 +249,69 @@ def bench_train_setup(dev):
     return g, cam, gt, cfg
 
 
+def cotangents(rng, T, P, dev):
+    """N(0,1) cotangents of accum (T,4,P) and of t_final (T,P)."""
+    return (torch.tensor(rng.standard_normal((T, 4, P)).astype(np.float32),
+                         device=dev),
+            torch.tensor(rng.standard_normal((T, P)).astype(np.float32),
+                         device=dev))
+
+
+def pick_tiles(tile_count, rng):
+    """tile_count with all but N_CHECK_TILES tiles zeroed: the 8 tiles with
+    the most entries and 8 more chosen from the seed, so that the plain
+    version walks only those."""
+    counts = tile_count.long()
+    top = torch.topk(counts, N_CHECK_TILES // 2).indices.cpu().numpy()
+    rest = np.setdiff1d(np.nonzero(counts.cpu().numpy())[0], top)
+    pick = np.concatenate([top, rng.choice(rest, N_CHECK_TILES // 2,
+                                           replace=False)])
+    tc = torch.zeros_like(tile_count)
+    tc[pick] = tile_count[pick]
+    return tc
+
+
+def bwd_vs_plain(label, entries, tile_start, tc, ga, gt, geo, fwd_kw,
+                 t_init=None, tile_id_base=0):
+    """composite_bwd (from composite_fwd's outputs on the same tables)
+    against autograd through the plain compositor, on the tiles ``tc``
+    keeps. Returns (max abs error, kernel ms, plain forward+backward ms)."""
+    kw = dict(geo, tile_id_base=tile_id_base)
+    with torch.no_grad():
+        sub = composite_fwd_cuda(entries, tile_start, tc, **kw, **fwd_kw,
+                                 t_init=t_init)
+        args = (entries, tile_start, tc, sub.t_final, sub.n_contrib, ga, gt)
+        kern = composite_bwd_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        sub_ms = median_ms(lambda: composite_bwd_cuda(*args, **kw), 20)
+
+    def plain():
+        x = entries.detach().requires_grad_()
+        out = composite_tiles_plain(x, tile_start, tc, **kw, **fwd_kw,
+                                    t_init=t_init)
+        ((out.accum * ga).sum() + (out.t_final * gt).sum()).backward()
+        return x.grad
+
+    want = plain()
+    torch.cuda.synchronize()
+    plain_ms = median_ms(plain, 3)
+    err = float((kern[:, :10] - want[:, :10]).abs().max())
+    check(torch.allclose(kern[:, :10], want[:, :10], **GRAD_TOL),
+          f"composite_bwd ({label}) disagrees with autograd through the "
+          f"plain version (max {err})")
+    check(float(kern[:, 10:].abs().max()) == 0.0, "columns 10-15 not 0")
+    check(float(kern[:, :10].abs().max()) > 0.0, f"{label}: zero gradient")
+    print(f"kernel vs plain: composite_bwd ({label}) on {N_CHECK_TILES} "
+          f"tiles ({int(tc.sum())} entries, largest tile {int(tc.max())}) "
+          f"max_abs_err {err:.3e}, kernel {sub_ms:.3f} ms, plain fwd+bwd "
+          f"{plain_ms:.1f} ms", flush=True)
+    return err, sub_ms, plain_ms
+
+
 def check_composite_bwd(g, cam, cfg, rng):
     """The compositor backward kernel against autograd through the plain
-    compositor on the card: d_entries of the training frame's 8 tiles with
-    the most entries and 8 more chosen from the seed (the other tiles'
-    counts zeroed, so the plain version walks only those), under a
-    numpy-seeded random cotangent. Kernel time on the full frame."""
+    compositor on the card, on 16 tiles of the training frame under
+    numpy-seeded random cotangents. Kernel time on the full frame."""
     with torch.no_grad():
         e = rasterize.build_entries(g, cam, W, H, cfg)
     b = e.binning
@@ -200,10 +321,7 @@ def check_composite_bwd(g, cam, cfg, rng):
                alpha_min=cfg.alpha_min, alpha_max=cfg.alpha_max)
     fwd_kw = dict(chunk=cfg.chunk, t_eps=cfg.transmittance_eps)
     T, P = e.n_tiles_x * e.n_tiles_y, cfg.tile_h * cfg.tile_w
-    ga = torch.tensor(rng.standard_normal((T, 4, P)).astype(np.float32),
-                      device=e.entries.device)
-    gt = torch.tensor(rng.standard_normal((T, P)).astype(np.float32),
-                      device=e.entries.device)
+    ga, gt = cotangents(rng, T, P, e.entries.device)
 
     # full frame: the main path's shapes, for the time and the bound
     with torch.no_grad():
@@ -214,56 +332,17 @@ def check_composite_bwd(g, cam, cfg, rng):
         composite_bwd_cuda(*args, **geo)
         torch.cuda.synchronize()
         kern_ms = median_ms(lambda: composite_bwd_cuda(*args, **geo), 20)
-    counts = b.tile_count.long()
-    max_nc = full.n_contrib.long().amax(dim=1)
-    rows = int(torch.minimum(counts, max_nc).sum())
-    n_bytes = (rows * 40 + e.entries.shape[0] * 64 + T * 8
-               + T * P * (16 + 4 + 4 + 4))
-    evals = int(full.n_contrib.long().sum())
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = evals * OPS_PER_EVAL_BWD / F32_OPS_PER_S * 1e3
-
-    # 16 tiles: kernel against autograd through the plain version
-    top = torch.topk(counts, N_CHECK_TILES // 2).indices.cpu().numpy()
-    rest = np.setdiff1d(np.nonzero(counts.cpu().numpy())[0], top)
-    pick = np.concatenate([top, rng.choice(rest, N_CHECK_TILES // 2,
-                                           replace=False)])
-    tc = torch.zeros_like(b.tile_count)
-    tc[pick] = b.tile_count[pick]
-    with torch.no_grad():
-        sub = composite_fwd_cuda(e.entries, b.tile_start, tc, **geo,
-                                 **fwd_kw)
-        kern = composite_bwd_cuda(e.entries, b.tile_start, tc, sub.t_final,
-                                  sub.n_contrib, ga, gt, **geo)
-        torch.cuda.synchronize()
-        sub_ms = median_ms(lambda: composite_bwd_cuda(
-            e.entries, b.tile_start, tc, sub.t_final, sub.n_contrib, ga, gt,
-            **geo), 20)
-
-    def plain():
-        x = e.entries.detach().requires_grad_()
-        out = composite_tiles_plain(x, b.tile_start, tc, **geo, **fwd_kw)
-        ((out.accum * ga).sum() + (out.t_final * gt).sum()).backward()
-        return x.grad
-
-    want = plain()
-    torch.cuda.synchronize()
-    plain_ms = median_ms(plain, 3)
-    err = float((kern[:, :10] - want[:, :10]).abs().max())
-    check(torch.allclose(kern[:, :10], want[:, :10], **GRAD_TOL),
-          f"composite_bwd disagrees with autograd through the plain version "
-          f"(max {err})")
-    check(float(kern[:, 10:].abs().max()) == 0.0, "columns 10-15 not 0")
-    print(f"kernel vs plain: composite_bwd on {N_CHECK_TILES} tiles "
-          f"({int(tc.sum())} entries, largest tile {int(tc.max())}) "
-          f"max_abs_err {err:.3e}, kernel {sub_ms:.3f} ms, plain fwd+bwd "
-          f"{plain_ms:.1f} ms; full frame: kernel {kern_ms:.3f} ms, entry "
+    rows, evals, n_bytes = bwd_work(e.entries.shape[0], b.tile_count,
+                                    full.n_contrib)
+    bnd = bound(n_bytes, evals * OPS_PER_EVAL_BWD)
+    err, _, plain_ms = bwd_vs_plain(
+        "training frame", e.entries, b.tile_start,
+        pick_tiles(b.tile_count, rng), ga, gt, geo, fwd_kw)
+    print(f"composite_bwd on the full frame: kernel {kern_ms:.3f} ms, entry "
           f"buffer {e.entries.shape[0]} rows, {int(b.num_pairs)} pairs, rows "
-          f"read {rows}, evals {evals}, bound bytes {bytes_ms:.4f} ms / ops "
-          f"{ops_ms:.4f} ms", flush=True)
-    return dict(max_abs_err=err, ms=kern_ms, plain_ms=plain_ms,
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+          f"read {rows}, evals {evals}, bound {bnd['bound_ms']:.4f} ms "
+          f"({bnd['bound_by']})", flush=True)
+    return dict(max_abs_err=err, ms=kern_ms, plain_ms=plain_ms, **bnd)
 
 
 def check_ssim(dev, rng):
@@ -303,12 +382,6 @@ def check_ssim(dev, rng):
         m, xg, w, retain_graph=True), 5)
     del m, xg
 
-    def bound(n_bytes, ops):
-        b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-        o_ms = ops / F32_OPS_PER_S * 1e3
-        return dict(bound_ms=max(b_ms, o_ms),
-                    bound_by="operations" if o_ms >= b_ms else "bytes")
-
     fwd = dict(max_abs_err=fwd_err, ms=fwd_ms, plain_ms=fwd_plain_ms,
                **bound(12 * n, OPS_SSIM_FWD * n))
     bwd = dict(max_abs_err=bwd_err, ms=bwd_ms, plain_ms=bwd_plain_ms,
@@ -322,6 +395,201 @@ def check_ssim(dev, rng):
     return fwd, bwd
 
 
+def fwd_vs_plain(label, args, kw):
+    """composite_fwd against the plain compositor on the same tables and
+    keywords: accum and t_final at IMG_TOL, n_contrib equal on >= 99.9% of
+    pixels. Returns (kernel output, max abs error, n_contrib mismatch,
+    plain ms)."""
+    with torch.no_grad():
+        kern = composite_fwd_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        plain = composite_tiles_plain(*args, **kw)
+        torch.cuda.synchronize()
+        plain_ms = median_ms(lambda: composite_tiles_plain(*args, **kw), 3)
+    err = max(float((kern.accum - plain.accum).abs().max()),
+              float((kern.t_final - plain.t_final).abs().max()))
+    for k in ("accum", "t_final"):
+        check(torch.allclose(getattr(kern, k), getattr(plain, k), **IMG_TOL),
+              f"composite_fwd ({label}): {k} disagrees with the plain "
+              f"version (max {err})")
+    mismatch = float((kern.n_contrib != plain.n_contrib).float().mean())
+    check(mismatch <= 1e-3, f"composite_fwd ({label}): n_contrib mismatch "
+          f"{mismatch}")
+    return kern, err, mismatch, plain_ms
+
+
+def slab_m_cap(g, cam, cfg):
+    """The per-slab pair capacity, right-sized from a probe: 1.3x the
+    fullest slab's pairs. Returns (m_cap, pairs per slab)."""
+    with torch.no_grad():
+        probe = prim_shard.build_slab_entries(
+            g, cam, W, H, cfg, n_slabs=N_SLABS,
+            m_cap=int(N_GAUSS * cfg.pairs_per_gaussian))
+    pairs = [int(e.binning.num_pairs) for e in probe]
+    check(max(int(e.binning.overflow) for e in probe) == 0, "probe overflow")
+    return int(max(pairs) * 1.3), pairs
+
+
+def check_slab_kernels(g, cam, cfg, rng):
+    """Phase 3c: the kernels as the depth-slab and tile-band paths call
+    them, each against its plain version on the card, on the training
+    frame's entries. Returns {kernel: numbers of the slab path}."""
+    dev = g.xyz.device
+    fwd_kw = dict(chunk=cfg.chunk, t_eps=cfg.transmittance_eps)
+    with torch.no_grad():
+        e = rasterize.build_entries(g, cam, W, H, cfg)
+        m_cap, pairs = slab_m_cap(g, cam, cfg)
+        slabs = prim_shard.build_slab_entries(g, cam, W, H, cfg,
+                                              n_slabs=N_SLABS, m_cap=m_cap)
+    geo = dict(n_tiles_x=e.n_tiles_x, n_tiles_y=e.n_tiles_y,
+               tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+               alpha_min=cfg.alpha_min, alpha_max=cfg.alpha_max)
+    T, P = e.n_tiles_x * e.n_tiles_y, cfg.tile_h * cfg.tile_w
+    tabs = [(s.entries, s.binning.tile_start, s.binning.tile_count)
+            for s in slabs]
+    full = (e.entries, e.binning.tile_start, e.binning.tile_count)
+
+    # ---- slab_tmit: each slab and the whole frame's (longest) lists
+    tmit_kw = dict(geo, chunk=cfg.chunk)
+    tmit_err = cut_err = 0.0
+    tmit_ms, tmit_plain_ms, t_nocut = [], [], []
+    with torch.no_grad():
+        for args in tabs + [full]:
+            got = slab_transmittance_cuda(*args, **tmit_kw)
+            torch.cuda.synchronize()
+            want = slab_transmittance_plain(*args, **tmit_kw)
+            cutfree = composite_fwd_cuda(*args, **tmit_kw, t_eps=0.0).t_final
+            tmit_err = max(tmit_err, float((got - want).abs().max()))
+            cut_err = max(cut_err, float((got - cutfree).abs().max()))
+            check(torch.allclose(got, want, **SLAB_TOL),
+                  f"slab_tmit disagrees with its plain version (max "
+                  f"{tmit_err})")
+            check(torch.allclose(got, cutfree, **SLAB_TOL),
+                  f"slab_tmit disagrees with the cut-free composite (max "
+                  f"{cut_err})")
+            tmit_ms.append(median_ms(
+                lambda: slab_transmittance_cuda(*args, **tmit_kw), 20))
+            tmit_plain_ms.append(median_ms(
+                lambda: slab_transmittance_plain(*args, **tmit_kw), 3))
+            t_nocut.append(got)
+        check(bool((t_nocut[0][slabs[0].binning.tile_count == 0] == 1).all()),
+              "slab_tmit: an empty tile is not 1")
+    # every (pair, pixel) is evaluated: nothing ends early
+    tmit_rows = sum(pairs)
+    tmit_bound = bound(tmit_rows * 24 + N_SLABS * (T * 8 + T * P * 4),
+                       tmit_rows * P * OPS_PER_EVAL_TMIT)
+    print(f"kernel vs plain: slab_tmit on {N_SLABS} slabs (pairs {pairs}, "
+          f"m_cap {m_cap}) and the whole frame: max_abs_err {tmit_err:.3e}, "
+          f"vs composite_fwd(t_eps=0).t_final {cut_err:.3e}; kernel ms per "
+          f"slab {[round(x, 3) for x in tmit_ms[:-1]]} (sum "
+          f"{sum(tmit_ms[:-1]):.3f}), whole frame {tmit_ms[-1]:.3f}; plain "
+          f"ms per slab {[round(x, 1) for x in tmit_plain_ms[:-1]]}; bound "
+          f"of the {N_SLABS} launches {tmit_bound['bound_ms']:.4f} ms "
+          f"({tmit_bound['bound_by']})", flush=True)
+    numbers = {"slab_tmit": dict(
+        max_abs_err=tmit_err, ms=sum(tmit_ms[:-1]),
+        plain_ms=sum(tmit_plain_ms[:-1]), **tmit_bound)}
+
+    # ---- composite_fwd with t_init: a random one on the whole frame, then
+    # every slab with the transmittance that really arrives at it
+    t_rand = torch.tensor(rng.uniform(1e-5, 0.3, (T, P)).astype(np.float32),
+                          device=dev)
+    uncut = composite_fwd_cuda(*full, **geo, **fwd_kw)
+    kern, err, mismatch, _ = fwd_vs_plain(
+        "random t_init", full, dict(geo, **fwd_kw, t_init=t_rand))
+    fired = float((kern.n_contrib < uncut.n_contrib).float().mean())
+    check(fired > 0, "the random t_init moved the cut nowhere")
+    print(f"kernel vs plain: composite_fwd with a random t_init in "
+          f"[1e-5, 0.3]: max_abs_err {err:.3e}, n_contrib mismatch "
+          f"{mismatch:.2e}, cut earlier on {fired:.3f} of the pixels",
+          flush=True)
+    with torch.no_grad():
+        t_arrive = prim_shard.arriving_transmittance(slabs, cfg)
+    check(torch.equal(t_arrive[1], t_nocut[0]), "arriving transmittance of "
+          "slab 1 is not slab 0's transmittance")
+    fwd_err, fwd_mis, fwd_ms, fwd_plain_ms = err, mismatch, [], []
+    rows = evals = n_bytes = 0
+    slab_outs = []
+    for k, args in enumerate(tabs):
+        kw = dict(geo, **fwd_kw, t_init=t_arrive[k])
+        kern, err, mismatch, plain_ms = fwd_vs_plain(f"slab {k}", args, kw)
+        fwd_err, fwd_mis = max(fwd_err, err), max(fwd_mis, mismatch)
+        with torch.no_grad():
+            fwd_ms.append(median_ms(
+                lambda: composite_fwd_cuda(*args, **kw), 20))
+        fwd_plain_ms.append(plain_ms)
+        work = fwd_work(args[2], kern.n_contrib, has_t_init=True)
+        rows, evals, n_bytes = (a + b for a, b in zip((rows, evals, n_bytes),
+                                                      work))
+        slab_outs.append(kern)
+    fwd_bnd = bound(n_bytes, evals * OPS_PER_EVAL)
+    print(f"kernel vs plain: composite_fwd with each slab's arriving "
+          f"transmittance: max_abs_err {fwd_err:.3e}, n_contrib mismatch "
+          f"{fwd_mis:.2e}; kernel ms per slab "
+          f"{[round(x, 3) for x in fwd_ms]} (sum {sum(fwd_ms):.3f}), plain "
+          f"ms per slab {[round(x, 1) for x in fwd_plain_ms]}; rows {rows}, "
+          f"evals {evals} (the single frame: "
+          f"{int(uncut.n_contrib.long().sum())}), bound of the {N_SLABS} "
+          f"launches {fwd_bnd['bound_ms']:.4f} ms ({fwd_bnd['bound_by']})",
+          flush=True)
+    numbers["composite_fwd"] = dict(
+        t_init_max_abs_err=fwd_err, t_init_ms=sum(fwd_ms),
+        t_init_plain_ms=sum(fwd_plain_ms),
+        t_init_bound_ms=fwd_bnd["bound_ms"],
+        t_init_bound_by=fwd_bnd["bound_by"])
+
+    # ---- composite_fwd with tile_id_base: band 1 of 2 of the whole frame
+    # is its lower half of tile rows, composited by itself
+    rows_loc = -(-e.n_tiles_y // N_BANDS)
+    base = rows_loc * e.n_tiles_x
+    band_args = (full[0], full[1][base:], full[2][base:])
+    band_kw = dict(geo, **fwd_kw, n_tiles_y=e.n_tiles_y - rows_loc,
+                   tile_id_base=base)
+    kern, err, mismatch, _ = fwd_vs_plain("band 1 of 2", band_args, band_kw)
+    for k in ("accum", "t_final", "n_contrib"):
+        check(torch.equal(getattr(kern, k), getattr(uncut, k)[base:]),
+              f"band 1 of 2: {k} is not the whole frame's lower half")
+    print(f"kernel vs plain: composite_fwd with tile_id_base {base} (band 1 "
+          f"of {N_BANDS}): max_abs_err {err:.3e}, n_contrib mismatch "
+          f"{mismatch:.2e}, equal to the whole frame's rows bit for bit",
+          flush=True)
+
+    # ---- composite_bwd: the slabs' full backward for the time, then 16
+    # tiles of slab 1 from its t_init forward against autograd, with and
+    # without a tile_id_base
+    ga, gt = cotangents(rng, T, P, dev)
+    bwd_ms = []
+    rows = evals = n_bytes = 0
+    with torch.no_grad():
+        for args, out in zip(tabs, slab_outs):
+            a = args + (out.t_final, out.n_contrib, ga, gt)
+            composite_bwd_cuda(*a, **geo)
+            bwd_ms.append(median_ms(lambda: composite_bwd_cuda(*a, **geo),
+                                    20))
+            work = bwd_work(args[0].shape[0], args[2], out.n_contrib)
+            rows, evals, n_bytes = (a + b for a, b in zip(
+                (rows, evals, n_bytes), work))
+    bwd_bnd = bound(n_bytes, evals * OPS_PER_EVAL_BWD)
+    ent, ts, tc = tabs[1]
+    err, _, plain_ms = bwd_vs_plain(
+        "slab 1, its t_init forward, non-zero g_t", ent, ts,
+        pick_tiles(tc, rng), ga, gt, geo, fwd_kw, t_init=t_arrive[1])
+    band_geo = dict(geo, n_tiles_y=e.n_tiles_y - rows_loc)
+    err2, _, _ = bwd_vs_plain(
+        f"slab 1, t_init, tile_id_base {base}", ent, ts[base:],
+        pick_tiles(tc[base:], rng), ga[base:], gt[base:], band_geo, fwd_kw,
+        t_init=t_arrive[1][base:], tile_id_base=base)
+    print(f"composite_bwd on the {N_SLABS} slabs: kernel ms per slab "
+          f"{[round(x, 3) for x in bwd_ms]} (sum {sum(bwd_ms):.3f}), rows "
+          f"read {rows}, evals {evals}, bound of the {N_SLABS} launches "
+          f"{bwd_bnd['bound_ms']:.4f} ms ({bwd_bnd['bound_by']})", flush=True)
+    numbers["composite_bwd"] = dict(
+        t_init_max_abs_err=max(err, err2), t_init_ms=sum(bwd_ms),
+        t_init_plain_ms=plain_ms, t_init_bound_ms=bwd_bnd["bound_ms"],
+        t_init_bound_by=bwd_bnd["bound_by"])
+    return numbers, m_cap, pairs
+
+
 def train(state, cam, gt, cfg, opt):
     """One bench.py train step on the card."""
     ones = torch.ones((1, H, W), device=gt.device)
@@ -333,12 +601,48 @@ def train(state, cam, gt, cfg, opt):
         train_test_exp=False, use_depth=False)
 
 
-KERNEL_WRAPPERS = {"composite_fwd": composite_fwd_cuda,
-                   "composite_bwd": composite_bwd_cuda,
-                   "ssim_fwd": ssim_fwd_cuda, "ssim_bwd": ssim_bwd_cuda}
-# launches per training step: the SSIM backward is two kernels
-PER_STEP = {"composite_fwd": 1, "composite_bwd": 1, "ssim_fwd": 1,
-            "ssim_bwd": 2}
+PALLAS = "gsplat_tpu/ops/pallas/"
+# Every kernel of the port: its wrapper (which counts its launches), the TPU
+# kernel bodies it replaces, and its launches per training step (the SSIM
+# backward is two kernels), per slab render (forward; the backward kernel in
+# the backward) and per band render. The build, the launch checks and the
+# ``kernels`` line all read this one table.
+KERNELS = {
+    "composite_fwd": dict(
+        wrapper=composite_fwd_cuda, per_step=1, per_slab_render=N_SLABS,
+        per_band_render=N_BANDS,
+        replaces=["composite_stream.py:82", "composite.py:167"]),
+    "composite_bwd": dict(
+        wrapper=composite_bwd_cuda, per_step=1, per_slab_render=N_SLABS,
+        per_band_render=N_BANDS,
+        replaces=["composite_stream.py:230", "composite.py:406"]),
+    "slab_tmit": dict(
+        wrapper=slab_transmittance_cuda, per_step=0,
+        per_slab_render=N_SLABS, per_band_render=0,
+        replaces=["composite.py:326"]),
+    "ssim_fwd": dict(wrapper=ssim_fwd_cuda, per_step=1, per_slab_render=0,
+                     per_band_render=0, replaces=["ssim_kernel.py:90"]),
+    "ssim_bwd": dict(wrapper=ssim_bwd_cuda, per_step=2, per_slab_render=0,
+                     per_band_render=0, replaces=["ssim_kernel.py:98"]),
+}
+
+
+def reset_launches():
+    for k in KERNELS.values():
+        k["wrapper"].launches = 0
+
+
+def read_launches():
+    return {name: k["wrapper"].launches for name, k in KERNELS.items()}
+
+
+def check_launches(got, key, times, what, backward=True):
+    """Every kernel launched exactly its ``key`` count times ``times``; a
+    run without a backward launched composite_bwd no time."""
+    for name, k in KERNELS.items():
+        want = k[key] * times * (backward or name != "composite_bwd")
+        check(got[name] == want, f"{name} launched {got[name]} times in "
+              f"{what}, expected {want}")
 
 
 def train_phase(g, cam, gt, cfg):
@@ -352,8 +656,7 @@ def train_phase(g, cam, gt, cfg):
     check(int(aux.overflow) == 0, f"overflow {int(aux.overflow)}")
     xyz0 = state.gaussians.xyz.clone()
     torch.cuda.reset_peak_memory_stats()
-    for fn in KERNEL_WRAPPERS.values():
-        fn.launches = 0
+    reset_launches()
     step_ms, losses, overflow = [], [], []
     for _ in range(N_STEPS):
         t = time.perf_counter()
@@ -362,11 +665,9 @@ def train_phase(g, cam, gt, cfg):
         step_ms.append((time.perf_counter() - t) * 1e3)
         losses.append(float(aux.loss))
         overflow.append(int(aux.overflow))
-    launches = {k: fn.launches for k, fn in KERNEL_WRAPPERS.items()}
+    launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for k, n in launches.items():
-        check(n == PER_STEP[k] * N_STEPS,
-              f"{k} launched {n} times in {N_STEPS} steps")
+    check_launches(launches, "per_step", N_STEPS, f"{N_STEPS} steps")
     check(all(np.isfinite(losses)), f"non-finite loss {losses}")
     check(max(overflow) == 0, f"overflow {overflow}")
     moved = float((state.gaussians.xyz - xyz0).abs().max())
@@ -400,27 +701,152 @@ def train_phase(g, cam, gt, cfg):
     return state, launches
 
 
-def profile_step(state, cam, gt, cfg):
-    """Where one training step's device time goes, as profile_frame."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        train(state, cam, gt, cfg, OptimizationConfig())
+def l1_grads(render, g, gt):
+    """Gradients of mean |image - gt| with respect to the trainables, for
+    ``render(gaussians) -> image``. Returns (loss, {field: gradient})."""
+    params = {k: getattr(g, k).detach().clone().requires_grad_()
+              for k in gm.TRAINABLE_FIELDS}
+    loss = (render(gm.with_trainables(g, params)) - gt).abs().mean()
+    loss.backward()
+    return float(loss.detach()), {k: v.grad for k, v in params.items()}
+
+
+def slab_phase(g, cams, cam, gt, cfg, m_cap, pairs):
+    """Phase 6: the depth-slab and tile-band renders at full width on the
+    training scene, held to the single render and its gradient. Returns the
+    launch counts of the slab path (forward renders plus one backward) and
+    of the band path."""
+    bg = torch.zeros(3, device=gt.device)
+
+    def slab(p, c):
+        return prim_shard.render_prim_sharded(p, c, W, H, bg, cfg,
+                                              n_slabs=N_SLABS, m_cap=m_cap)
+
+    def band(p, c):
+        return tile_shard.render_tile_sharded(p, c, W, H, bg, cfg,
+                                              n_bands=N_BANDS)
+
+    with torch.no_grad():
+        singles = [rasterize.render(g, c, W, H, bg, cfg) for c in cams]
+        slab(g, cams[0])                                     # warm-up
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
-    busy_ms = sum(r[0] for r in rows)
-    n_ops = sum(r[1] for r in rows)
-    top = "; ".join(f"{key[:70]} x{n} {ms:.3f} ms"
-                    for ms, n, key in rows[:15])
-    print(f"profile one train step: wall {wall_ms:.3f} ms under the "
-          f"profiler, device busy {busy_ms:.3f} ms in {n_ops} device ops; "
-          f"top: {top}", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        frame_ms, img_err = [], []
+        for c, single in zip(cams, singles):
+            t = time.perf_counter()
+            img, inv, overflow = slab(g, c)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t) * 1e3)
+            check(int(overflow) == 0, f"slab overflow {int(overflow)}")
+            check(int(single.overflow) == 0, "single render overflow")
+            check(tuple(img.shape) == (3, H, W), f"image shape {img.shape}")
+            check(bool(torch.isfinite(img).all())
+                  and bool(torch.isfinite(inv).all()), "non-finite image")
+            check(float(img.std()) > 0.01 and float(img.max()) > 0.1,
+                  "blank image")
+            img_err.append(max(float((img - single.image).abs().max()),
+                               float((inv - single.invdepth).abs().max())))
+            check(img_err[-1] <= 1e-3, f"slab render is {img_err[-1]} from "
+                  f"the single render")
+        fwd_launches = read_launches()
+        check_launches(fwd_launches, "per_slab_render", N_POSES,
+                       f"{N_POSES} slab renders", backward=False)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del singles
+
+    # one forward plus backward of an L1 loss against the training frame's
+    # ground truth, held to the single render's gradient
+    reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss, grads = l1_grads(lambda p: slab(p, cam)[0], g, gt)
+    torch.cuda.synchronize()
+    fb_ms = (time.perf_counter() - t) * 1e3
+    fb_launches = read_launches()
+    check_launches(fb_launches, "per_slab_render", 1,
+                   "one slab forward plus backward")
+    loss1, want = l1_grads(
+        lambda p: rasterize.render(p, cam, W, H, bg, cfg).image, g, gt)
+    with torch.no_grad():
+        vis = rasterize.render(g, cam, W, H, bg, cfg).radii > 0
+    check(np.isfinite(loss) and abs(loss - loss1) <= 1e-4,
+          f"slab loss {loss} vs single {loss1}")
+    grad_err = {}
+    for k, v in grads.items():
+        check(bool(torch.isfinite(v).all()), f"non-finite gradient of {k}")
+        check(float(v[~vis].abs().sum()) == 0.0,
+              f"gradient of {k} on invisible gaussians")
+        d = (v - want[k]).abs()
+        out = d > SLAB_GRAD_TOL["atol"] + SLAB_GRAD_TOL["rtol"] * want[k].abs()
+        grad_err[k] = (float(d.max()), float(want[k].abs().max()),
+                       float(out.float().mean()))
+    print(f"slab gradients vs the single render's (max abs err, max |grad|, "
+          f"share outside rtol {SLAB_GRAD_TOL['rtol']} / atol "
+          f"{SLAB_GRAD_TOL['atol']}; also held: max abs err <= "
+          f"{SLAB_GRAD_REL_MAX} x max |grad|): "
+          + "; ".join(f"{k} {a:.3e} {b:.3e} {c:.2e}"
+                      for k, (a, b, c) in grad_err.items()), flush=True)
+    for k, (err, size, share) in grad_err.items():
+        check(share == 0.0, f"slab gradient of {k} outside the gate on "
+              f"{share} of its elements")
+        check(size > 0 and err <= SLAB_GRAD_REL_MAX * size,
+              f"slab gradient of {k}: max error {err} against a largest "
+              f"gradient of {size}")
+    slab_launches = {k: fwd_launches[k] + fb_launches[k] for k in KERNELS}
+    print(f"slab render {W}x{H}, {N_GAUSS} gaussians, SH 3, {N_SLABS} slabs, "
+          f"{N_POSES} poses: frame ms {[round(x, 3) for x in frame_ms]} "
+          f"(median {np.median(frame_ms):.3f}), max |image - single| "
+          f"{max(img_err):.3e}, pairs per slab {pairs}, per-slab m_cap "
+          f"{m_cap}, launches {fwd_launches}, peak memory {peak_gb:.2f} GB; "
+          f"forward plus backward of an L1 loss {fb_ms:.3f} ms, loss "
+          f"{loss:.6f} (single {loss1:.6f}), launches {fb_launches}",
+          flush=True)
+
+    # the tile-band render: tiles are independent, so it is the single
+    # render's image
+    with torch.no_grad():
+        single = rasterize.render(g, cam, W, H, bg, cfg)
+        band(g, cam)                                         # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        band_ms = []
+        for _ in range(N_POSES):
+            t = time.perf_counter()
+            img, inv, num_pairs, overflow = band(g, cam)
+            torch.cuda.synchronize()
+            band_ms.append((time.perf_counter() - t) * 1e3)
+        check(int(overflow) == 0, f"band overflow {int(overflow)}")
+        check(int(num_pairs) == int(single.num_pairs), "band pair count")
+        for a, b in ((img, single.image), (inv, single.invdepth)):
+            check(torch.allclose(a, b, **SLAB_TOL), "band render differs "
+                  f"from the single render by {float((a - b).abs().max())}")
+        band_err = float((img - single.image).abs().max())
+    check_launches(read_launches(), "per_band_render", N_POSES,
+                   f"{N_POSES} band renders", backward=False)
+    reset_launches()
+    t = time.perf_counter()
+    _, band_grads = l1_grads(lambda p: band(p, cam)[0], g, gt)
+    torch.cuda.synchronize()
+    band_fb_ms = (time.perf_counter() - t) * 1e3
+    band_launches = read_launches()
+    check_launches(band_launches, "per_band_render", 1,
+                   "one band forward plus backward")
+    for k, v in band_grads.items():
+        check(torch.allclose(v, want[k], **GRAD_TOL), f"band gradient of "
+              f"{k} differs by {float((v - want[k]).abs().max())}")
+    print(f"band render, {N_BANDS} bands: frame ms "
+          f"{[round(x, 3) for x in band_ms]} (median "
+          f"{np.median(band_ms):.3f}), max |image - single| {band_err:.3e}, "
+          f"forward plus backward {band_fb_ms:.3f} ms, launches "
+          f"{band_launches}, gradients within rtol {GRAD_TOL['rtol']} / "
+          f"atol {GRAD_TOL['atol']} of the single render's", flush=True)
+
+    def one_slab_render():
+        with torch.no_grad():
+            slab(g, cam)
+    profile_call("one slab render", one_slab_render)
+    return slab_launches, band_launches
 
 
 def main():
@@ -436,7 +862,10 @@ def main():
           f"cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    report = build.build()
+    check(set(KERNELS) == set(build.KERNELS),
+          f"the KERNELS table {sorted(KERNELS)} is not what the package "
+          f"builds {sorted(build.KERNELS)}")
+    report = build.build(tuple(KERNELS))
     regs = "; ".join(ln.strip() for _, _, log in report.values()
                      for ln in log.splitlines() if "registers" in ln)
     print(f"build: {list(report)} in {time.perf_counter() - t0:.2f} s "
@@ -464,34 +893,16 @@ def main():
                    alpha_min=cfg.alpha_min, alpha_max=cfg.alpha_max,
                    t_eps=cfg.transmittance_eps)
         args = (e.entries, b.tile_start, b.tile_count)
-        kern = composite_fwd_cuda(*args, **geo)
-        torch.cuda.synchronize()
-        plain = composite_tiles_plain(*args, **geo)
-        torch.cuda.synchronize()
+        kern, err, mismatch, plain_ms = fwd_vs_plain("render frame", args,
+                                                     geo)
         kern_ms = median_ms(lambda: composite_fwd_cuda(*args, **geo), 20)
-        plain_ms = median_ms(
-            lambda: composite_tiles_plain(*args, **geo), 3)
-    err = max(float((kern.accum - plain.accum).abs().max()),
-              float((kern.t_final - plain.t_final).abs().max()))
-    for k in ("accum", "t_final"):
-        check(torch.allclose(getattr(kern, k), getattr(plain, k), **IMG_TOL),
-              f"kernel {k} disagrees with the plain version (max {err})")
-    mismatch = float((kern.n_contrib != plain.n_contrib).float().mean())
-    check(mismatch <= 1e-3, f"n_contrib mismatch {mismatch}")
-    # least time for this frame: bytes = entry rows in tile ranges (cols
-    # 0-9) + tile tables + outputs; operations = the (pair, pixel)
-    # evaluations up to each pixel's last contributor (a lower bound)
-    T, P = kern.t_final.shape
-    n_rows = int(b.tile_count.long().sum())
-    n_bytes = n_rows * 40 + T * 8 + T * P * 24
-    evals = int(plain.n_contrib.long().sum())
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = evals * OPS_PER_EVAL / F32_OPS_PER_S * 1e3
+    n_rows, evals, n_bytes = fwd_work(b.tile_count, kern.n_contrib)
+    bnd = bound(n_bytes, evals * OPS_PER_EVAL)
     print(f"kernel vs plain: composite_fwd max_abs_err {err:.3e}, "
           f"n_contrib mismatch {mismatch:.2e}, kernel {kern_ms:.3f} ms, "
           f"plain {plain_ms:.1f} ms, rows {n_rows}, evals {evals}, "
-          f"bound bytes {bytes_ms:.4f} ms / ops {ops_ms:.4f} ms", flush=True)
-    del kern, plain, e, args
+          f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
+    del kern, e, args
 
     small = {k: v[:3000] for k, v in loaded.items()}
     with torch.no_grad():
@@ -504,10 +915,8 @@ def main():
           f"small render on the card vs the CPU: max {small_err}")
     print(f"small render 256x128, 3000 gaussians: card vs CPU max_abs_err "
           f"{small_err:.3e}", flush=True)
-    numbers = {"composite_fwd": dict(
-        max_abs_err=err, ms=kern_ms, plain_ms=plain_ms,
-        bound_ms=max(bytes_ms, ops_ms),
-        bound_by="operations" if ops_ms >= bytes_ms else "bytes")}
+    numbers = {"composite_fwd": dict(max_abs_err=err, ms=kern_ms,
+                                     plain_ms=plain_ms, **bnd)}
 
     # ---- phase 3b: the training kernels against their plain versions
     tg, tcam, tgt, tcfg = bench_train_setup(dev)
@@ -515,13 +924,18 @@ def main():
     numbers["composite_bwd"] = check_composite_bwd(tg, tcam, tcfg, check_rng)
     numbers["ssim_fwd"], numbers["ssim_bwd"] = check_ssim(dev, check_rng)
 
+    # ---- phase 3c: the kernels as the slab and band paths call them
+    slab_numbers, m_cap, pairs = check_slab_kernels(tg, tcam, tcfg, check_rng)
+    for name, extra in slab_numbers.items():
+        numbers.setdefault(name, {}).update(extra)
+
     # ---- phase 4: the render path at full width, 5 poses
     with torch.no_grad():
         rasterize.render(g, cams[0], W, H, bg, cfg)       # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        composite_fwd_cuda.launches = 0
-        frame_ms, pairs, padded = [], [], []
+        reset_launches()
+        frame_ms, pairs4, padded = [], [], []
         for cam in cams:
             t = time.perf_counter()
             out = rasterize.render(g, cam, W, H, bg, cfg)
@@ -535,34 +949,50 @@ def main():
                   "non-finite image")
             check(float(img.std()) > 0.01 and float(img.max()) > 0.1,
                   "blank image")
-            pairs.append(int(out.num_pairs))
+            pairs4.append(int(out.num_pairs))
             padded.append(int(out.num_padded))
-        launches = composite_fwd_cuda.launches
+        render_launches = read_launches()
+    launches = render_launches["composite_fwd"]
     check(launches == N_POSES,
           f"compositor kernel launched {launches} times for {N_POSES} frames")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"render {W}x{H}, {N_GAUSS} gaussians, SH 3, {N_POSES} poses: "
           f"frame ms {[round(x, 3) for x in frame_ms]} (median "
-          f"{np.median(frame_ms):.3f}), num_pairs {pairs}, num_padded "
+          f"{np.median(frame_ms):.3f}), num_pairs {pairs4}, num_padded "
           f"{padded}, launches {launches}, peak memory {peak_gb:.2f} GB",
           flush=True)
 
-    profile_frame(g, cams[0], bg, cfg)
+    def one_frame():
+        with torch.no_grad():
+            rasterize.render(g, cams[0], W, H, bg, cfg)
+    profile_call("one frame", one_frame)
 
     # ---- phase 5: the training path at full width
     state, train_launches = train_phase(tg, tcam, tgt, tcfg)
-    profile_step(state, tcam, tgt, tcfg)
+    profile_call("one train step",
+                 lambda: train(state, tcam, tgt, tcfg, OptimizationConfig()),
+                 n_top=15)
 
-    replaces = {"composite_fwd": "composite_stream.py:82",
-                "composite_bwd": "composite_stream.py:230",
-                "ssim_fwd": "ssim_kernel.py:90",
-                "ssim_bwd": "ssim_kernel.py:98"}
-    print(json.dumps({"kernels": [dict(
-        name=name, route="cuda",
-        source=f"gsplat_tpu_torch/ops/kernels/csrc/{name}.cu",
-        replaces=f"gsplat_tpu/ops/pallas/{replaces[name]}",
-        launches=train_launches[name], **numbers[name], library_ms=None)
-        for name in KERNEL_WRAPPERS]}), flush=True)
+    # ---- phase 6: the slab and band paths at full width
+    slab_launches, band_launches = slab_phase(state.gaussians, cams, tcam,
+                                              tgt, tcfg, m_cap, pairs)
+
+    kernels = []
+    for name, k in KERNELS.items():
+        by_path = {"render": render_launches[name],
+                   "train": train_launches[name],
+                   "slab": slab_launches[name], "band": band_launches[name]}
+        check(any(by_path.values()), f"{name} was launched on no path")
+        n = numbers[name]
+        for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"):
+            check(key in n, f"{name} has no {key}")
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"gsplat_tpu_torch/ops/kernels/csrc/{name}.cu",
+            replaces=" + ".join(PALLAS + r for r in k["replaces"]),
+            launches=by_path["train"] or by_path["slab"],
+            launches_by_path=by_path, **n, library_ms=None))
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -22,7 +22,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-KERNELS = ("composite_fwd", "composite_bwd", "ssim_fwd", "ssim_bwd")
+KERNELS = ("composite_fwd", "composite_bwd", "slab_tmit", "ssim_fwd",
+           "ssim_bwd")
 
 
 def nvcc() -> str:

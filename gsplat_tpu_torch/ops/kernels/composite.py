@@ -4,9 +4,11 @@
 the plain PyTorch version (ops/composite_ref.py), differentiated by
 autograd; a CUDA tensor to the hand-written kernels csrc/composite_fwd.cu
 and, for the gradient, csrc/composite_bwd.cu, joined by a
-``torch.autograd.Function``; anything else raises. There is no fallback:
-on the card the kernel launches or the call raises. Autograd through the
-plain version is the oracle both kernels are held to.
+``torch.autograd.Function``; anything else raises. ``slab_transmittance``
+routes the same way between ``slab_transmittance_plain`` and
+csrc/slab_tmit.cu. There is no fallback: on the card the kernel launches
+or the call raises. The plain versions (autograd through the compositor's)
+are the oracles the kernels are held to.
 """
 from __future__ import annotations
 
@@ -17,21 +19,27 @@ from typing import Optional
 import torch
 
 from gsplat_tpu_torch.ops.composite_ref import (CompositeOut,
-                                                composite_tiles_plain)
+                                                composite_tiles_plain,
+                                                slab_transmittance_plain)
 from gsplat_tpu_torch.ops.kernels import build
 
 _P = ctypes.c_void_p
-_FWD_ARGTYPES = ([_P, ctypes.c_longlong, _P, _P] + [ctypes.c_int] * 5
-                 + [ctypes.c_float] * 3 + [_P] * 4)
-_BWD_ARGTYPES = ([_P, ctypes.c_longlong, _P, _P] + [ctypes.c_int] * 4
-                 + [ctypes.c_float] * 2 + [_P] * 6)
+_TABLES = [_P, ctypes.c_longlong, _P, _P]      # entries, n_rows, start, count
+_ARGTYPES = {
+    "composite_fwd": (_TABLES + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
+                      + [_P, ctypes.c_int] + [_P] * 4),
+    "composite_bwd": (_TABLES + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
+                      + [_P] * 4 + [ctypes.c_int] + [_P] * 2),
+    "slab_tmit": (_TABLES + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+                  + [_P] * 2),
+}
 
 
 @functools.lru_cache(maxsize=None)
 def _lib(name: str):
     lib = build.load(name)
     fn = getattr(lib, f"gsplat_{name}")
-    fn.argtypes = _FWD_ARGTYPES if name == "composite_fwd" else _BWD_ARGTYPES
+    fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     getattr(lib, f"gsplat_{name}_max_pixels").restype = ctypes.c_int
     return lib, fn
@@ -65,16 +73,23 @@ def _check(name: str, entries, tables, T: int, P: int, per_tile=()):
 def composite_fwd_cuda(entries: torch.Tensor, tile_start: torch.Tensor,
                        tile_count: torch.Tensor, *, n_tiles_x: int,
                        n_tiles_y: int, tile_h: int, tile_w: int, chunk: int,
-                       alpha_min: float, alpha_max: float,
-                       t_eps: float) -> CompositeOut:
+                       alpha_min: float, alpha_max: float, t_eps: float,
+                       t_init: Optional[torch.Tensor] = None,
+                       tile_id_base: int = 0) -> CompositeOut:
     """Launch the CUDA compositor on the current stream. entries (M,16) f32,
-    tile_start/tile_count (T,) i32 (ranges aligned to ``chunk``), all on one
-    CUDA device. Not differentiable by itself: ``composite_tiles`` is."""
+    tile_start/tile_count (T,) i32 (ranges aligned to ``chunk``), t_init
+    (T,P) f32 or None (= ones), all on one CUDA device; tile 0 of the launch
+    is tile ``tile_id_base`` of the full grid. Not differentiable by itself:
+    ``composite_tiles`` is."""
     T = n_tiles_x * n_tiles_y
     P = tile_h * tile_w
     dev = entries.device
     fn = _check("composite_fwd", entries, (("tile_start", tile_start),
-                                           ("tile_count", tile_count)), T, P)
+                                           ("tile_count", tile_count)), T, P,
+                () if t_init is None else
+                (("t_init", t_init, (T, P), torch.float32),))
+    if t_init is not None:
+        t_init = t_init.detach().contiguous()
     entries = entries.detach().contiguous()
     tile_start = tile_start.contiguous()
     tile_count = tile_count.contiguous()
@@ -85,8 +100,10 @@ def composite_fwd_cuda(entries: torch.Tensor, tile_start: torch.Tensor,
         err = fn(
             entries.data_ptr(), entries.shape[0], tile_start.data_ptr(),
             tile_count.data_ptr(), T, n_tiles_x, tile_h, tile_w, chunk,
-            alpha_min, alpha_max, t_eps, accum.data_ptr(), t_final.data_ptr(),
-            n_contrib.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            alpha_min, alpha_max, t_eps,
+            None if t_init is None else t_init.data_ptr(), tile_id_base,
+            accum.data_ptr(), t_final.data_ptr(), n_contrib.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"composite_fwd launch failed: cudaError_t {err}")
     composite_fwd_cuda.launches += 1
@@ -102,11 +119,13 @@ def composite_bwd_cuda(entries: torch.Tensor, tile_start: torch.Tensor,
                        g_accum: Optional[torch.Tensor],
                        g_t: Optional[torch.Tensor], *, n_tiles_x: int,
                        n_tiles_y: int, tile_h: int, tile_w: int,
-                       alpha_min: float, alpha_max: float) -> torch.Tensor:
+                       alpha_min: float, alpha_max: float,
+                       tile_id_base: int = 0) -> torch.Tensor:
     """Launch the CUDA compositor backward on the current stream: d_entries
     (M,16) from the forward's t_final (T,P) and n_contrib (T,P) and the
     cotangents g_accum (T,4,P) and g_t (T,P); a None cotangent is zeros.
-    Columns 10-15, and rows no pixel reaches, are 0."""
+    Columns 10-15, and rows no pixel reaches, are 0. A forward that took
+    ``t_init`` needs none here: its n_contrib and t_final carry the cut."""
     T = n_tiles_x * n_tiles_y
     P = tile_h * tile_w
     dev = entries.device
@@ -128,7 +147,7 @@ def composite_bwd_cuda(entries: torch.Tensor, tile_start: torch.Tensor,
         err = fn(
             args[0].data_ptr(), args[0].shape[0], args[1].data_ptr(),
             args[2].data_ptr(), T, n_tiles_x, tile_h, tile_w, alpha_min,
-            alpha_max, *(a.data_ptr() for a in args[3:]),
+            alpha_max, *(a.data_ptr() for a in args[3:]), tile_id_base,
             d_entries.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"composite_bwd launch failed: cudaError_t {err}")
@@ -139,12 +158,46 @@ def composite_bwd_cuda(entries: torch.Tensor, tile_start: torch.Tensor,
 composite_bwd_cuda.launches = 0   # kernel launches since the last reset
 
 
+def slab_transmittance_cuda(entries: torch.Tensor, tile_start: torch.Tensor,
+                            tile_count: torch.Tensor, *, n_tiles_x: int,
+                            n_tiles_y: int, tile_h: int, tile_w: int,
+                            chunk: int, alpha_min: float,
+                            alpha_max: float) -> torch.Tensor:
+    """Launch the CUDA slab transmittance on the current stream: (T,P) f32,
+    the product of (1 − α) over each tile's whole list, 1 on an empty
+    tile. Inputs as ``composite_fwd_cuda``'s. No gradient."""
+    T = n_tiles_x * n_tiles_y
+    P = tile_h * tile_w
+    dev = entries.device
+    fn = _check("slab_tmit", entries, (("tile_start", tile_start),
+                                       ("tile_count", tile_count)), T, P)
+    entries = entries.detach().contiguous()
+    tile_start = tile_start.contiguous()
+    tile_count = tile_count.contiguous()
+    t_out = torch.empty((T, P), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(
+            entries.data_ptr(), entries.shape[0], tile_start.data_ptr(),
+            tile_count.data_ptr(), T, n_tiles_x, tile_h, tile_w, chunk,
+            alpha_min, alpha_max, t_out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"slab_tmit launch failed: cudaError_t {err}")
+    slab_transmittance_cuda.launches += 1
+    return t_out
+
+
+slab_transmittance_cuda.launches = 0   # kernel launches since the last reset
+
+
 class _CompositeCuda(torch.autograd.Function):
-    """The CUDA forward, with the CUDA backward as its gradient."""
+    """The CUDA forward, with the CUDA backward as its gradient. ``t_init``
+    is a constant of the forward; the backward does not need it."""
 
     @staticmethod
-    def forward(ctx, entries, tile_start, tile_count, geo):
-        out = composite_fwd_cuda(entries, tile_start, tile_count, **geo)
+    def forward(ctx, entries, tile_start, tile_count, t_init, geo):
+        out = composite_fwd_cuda(entries, tile_start, tile_count,
+                                 t_init=t_init, **geo)
         ctx.save_for_backward(entries, tile_start, tile_count, out.t_final,
                               out.n_contrib)
         ctx.geo = geo
@@ -160,21 +213,42 @@ class _CompositeCuda(torch.autograd.Function):
                                                              "t_eps")}
         d = composite_bwd_cuda(entries, tile_start, tile_count, t_final,
                                n_contrib, g_accum, g_t, **geo)
-        return d, None, None, None
+        return d, None, None, None, None
 
 
 def composite_tiles(entries: torch.Tensor, tile_start: torch.Tensor,
                     tile_count: torch.Tensor, *, n_tiles_x: int,
                     n_tiles_y: int, tile_h: int, tile_w: int, chunk: int,
-                    alpha_min: float, alpha_max: float,
-                    t_eps: float) -> CompositeOut:
-    """Composite the chunk-aligned entry list, on the device it lies on."""
+                    alpha_min: float, alpha_max: float, t_eps: float,
+                    t_init: Optional[torch.Tensor] = None,
+                    tile_id_base: int = 0) -> CompositeOut:
+    """Composite the chunk-aligned entry list, on the device it lies on.
+    ``t_init`` (T,P), the transmittance arriving from nearer depth slabs,
+    scales the early-out test only and carries no gradient;
+    ``tile_id_base`` is the full-grid id of tile 0 (tile bands)."""
     kw = dict(n_tiles_x=n_tiles_x, n_tiles_y=n_tiles_y, tile_h=tile_h,
               tile_w=tile_w, chunk=chunk, alpha_min=alpha_min,
-              alpha_max=alpha_max, t_eps=t_eps)
+              alpha_max=alpha_max, t_eps=t_eps, tile_id_base=tile_id_base)
     if entries.device.type == "cpu":
-        return composite_tiles_plain(entries, tile_start, tile_count, **kw)
+        return composite_tiles_plain(entries, tile_start, tile_count,
+                                     t_init=t_init, **kw)
     if entries.device.type == "cuda":
         return CompositeOut(*_CompositeCuda.apply(entries, tile_start,
-                                                  tile_count, kw))
+                                                  tile_count, t_init, kw))
     raise ValueError(f"no compositor for device {entries.device}")
+
+
+def slab_transmittance(entries: torch.Tensor, tile_start: torch.Tensor,
+                       tile_count: torch.Tensor, *, n_tiles_x: int,
+                       n_tiles_y: int, tile_h: int, tile_w: int, chunk: int,
+                       alpha_min: float, alpha_max: float) -> torch.Tensor:
+    """(T,P) cut-free transmittance of each tile's whole entry list, on the
+    device the entries lie on. No gradient."""
+    kw = dict(n_tiles_x=n_tiles_x, n_tiles_y=n_tiles_y, tile_h=tile_h,
+              tile_w=tile_w, chunk=chunk, alpha_min=alpha_min,
+              alpha_max=alpha_max)
+    if entries.device.type == "cpu":
+        return slab_transmittance_plain(entries, tile_start, tile_count, **kw)
+    if entries.device.type == "cuda":
+        return slab_transmittance_cuda(entries, tile_start, tile_count, **kw)
+    raise ValueError(f"no slab transmittance for device {entries.device}")

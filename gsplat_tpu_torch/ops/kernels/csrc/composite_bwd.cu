@@ -1,8 +1,14 @@
 // Tile compositor backward for Hopper (sm_90a).
 //
-// Replaces the TPU kernel gsplat_tpu/ops/pallas/composite_stream.py
-// `_bwd_strip_kernel` (reached through `composite_bwd_stream`), "vpu" form,
-// and computes what autograd through the plain version
+// Replaces two TPU kernels of the same semantics: gsplat_tpu/ops/pallas/
+// composite_stream.py `_bwd_strip_kernel` (reached through
+// `composite_bwd_stream`), "vpu" form, and composite.py `_bwd_kernel`
+// (reached through `_composite_bwd_call`), the gradient of the forward that
+// takes `t_init` and `tile_id_base`. It needs no `t_init`: n_contrib
+// already encodes where each pixel stopped, and the replay starts from the
+// forward's own t_final, in the unit-T space the forward accumulates in.
+// Tile t lies where tile `tile_id_base + t` of the full grid lies. It
+// computes what autograd through the plain version
 // gsplat_tpu_torch/ops/composite_ref.py `composite_tiles_plain` computes:
 // from the forward's t_final and n_contrib and the cotangents g_accum
 // (T,4,P) and g_t (T,P), the per-entry gradient rows d_entries (M,16),
@@ -44,6 +50,8 @@
 
 #include <cuda_runtime.h>
 
+#include "composite_alpha.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;              // one block per tile
@@ -66,7 +74,7 @@ composite_bwd_kernel(const float* __restrict__ entries, long long n_rows,
                      const float* __restrict__ t_final,
                      const int* __restrict__ n_contrib,
                      const float* __restrict__ g_accum,
-                     const float* __restrict__ g_t,
+                     const float* __restrict__ g_t, int tile_id_base,
                      float* __restrict__ d_entries) {
   __shared__ float s_ent[kCols][kBatch];          // tile-local rows
   __shared__ float s_part[kWarps][kBatch][kCols]; // per-warp sums
@@ -76,10 +84,9 @@ composite_bwd_kernel(const float* __restrict__ entries, long long n_rows,
   const int P = tile_h * tile_w;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long long start = tile_start[t];
-  long long count = tile_count[t];
-  count = start >= n_rows ? 0 : (count < n_rows - start ? count : n_rows - start);
-  const float ox = static_cast<float>((t % n_tiles_x) * tile_w);
-  const float oy = static_cast<float>((t / n_tiles_x) * tile_h);
+  const long long count = gsplat::clamp_count(start, tile_count[t], n_rows);
+  float ox, oy;
+  gsplat::tile_origin(t, tile_id_base, n_tiles_x, tile_h, tile_w, &ox, &oy);
 
   float px[kPix], py[kPix], T[kPix], S[kPix], ga[kPix][4];
   int nc[kPix];
@@ -138,18 +145,13 @@ composite_bwd_kernel(const float* __restrict__ entries, long long n_rows,
 #pragma unroll
       for (int k = 0; k < kPix; ++k) {
         if (rank >= nc[k]) continue;
-        // the forward's arithmetic, rounded the same way (composite_fwd.cu)
-        const float dx = __fsub_rn(px[k], mx);
-        const float dy = __fsub_rn(py[k], my);
-        const float q = __fadd_rn(__fmul_rn(__fmul_rn(ca, dx), dx),
-                                  __fmul_rn(__fmul_rn(cc, dy), dy));
-        const float power = __fsub_rn(__fmul_rn(-0.5f, q),
-                                      __fmul_rn(__fmul_rn(cb, dx), dy));
-        if (!(power <= 0.f)) continue;
-        const float ex = expf(power);
-        const float a_raw = __fmul_rn(op, ex);
-        const float alpha = a_raw > alpha_max ? alpha_max : a_raw;
-        if (!(alpha >= alpha_min)) continue;
+        // the forward's alpha, rounded the same way (composite_alpha.cuh)
+        gsplat::Alpha a;
+        if (!gsplat::eval_alpha(px[k], py[k], mx, my, ca, cb, cc, op,
+                                alpha_min, alpha_max, &a))
+          continue;
+        const float dx = a.dx, dy = a.dy, ex = a.ex, a_raw = a.a_raw;
+        const float alpha = a.alpha;
         live = true;
         const float one_m = __fsub_rn(1.f, alpha);
         const float tj = __fdiv_rn(T[k], one_m);     // T before this entry
@@ -202,21 +204,24 @@ int gsplat_composite_bwd_max_pixels() { return kThreads * kPix; }
 // entries (n_rows, 16) f32; tile_start / tile_count (n_tiles,) i32;
 // t_final (n_tiles, P) f32 and n_contrib (n_tiles, P) i32 from the forward;
 // g_accum (n_tiles, 4, P) and g_t (n_tiles, P) f32 cotangents; d_entries
-// (n_rows, 16) f32, zeroed by the caller. P = tile_h * tile_w <= 1024.
-// Launches on `stream` and returns the launch's cudaError_t (0 on success).
+// (n_rows, 16) f32, zeroed by the caller. P = tile_h * tile_w <= 1024;
+// tile_id_base the full-grid id of the launch's tile 0. Launches on
+// `stream` and returns the launch's cudaError_t (0 on success).
 int gsplat_composite_bwd(const float* entries, long long n_rows,
                          const int* tile_start, const int* tile_count,
                          int n_tiles, int n_tiles_x, int tile_h, int tile_w,
                          float alpha_min, float alpha_max,
                          const float* t_final, const int* n_contrib,
                          const float* g_accum, const float* g_t,
-                         float* d_entries, void* stream) {
+                         int tile_id_base, float* d_entries, void* stream) {
   if (n_tiles <= 0) return 0;
-  if (tile_h * tile_w > kThreads * kPix) return cudaErrorInvalidValue;
+  if (tile_h * tile_w > kThreads * kPix || n_tiles_x <= 0 || tile_id_base < 0)
+    return cudaErrorInvalidValue;
   composite_bwd_kernel<<<n_tiles, kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       entries, n_rows, tile_start, tile_count, n_tiles_x, tile_h, tile_w,
-      alpha_min, alpha_max, t_final, n_contrib, g_accum, g_t, d_entries);
+      alpha_min, alpha_max, t_final, n_contrib, g_accum, g_t, tile_id_base,
+      d_entries);
   return static_cast<int>(cudaGetLastError());
 }
 

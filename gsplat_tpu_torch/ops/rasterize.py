@@ -64,14 +64,19 @@ def pack_entries(pre: preprocess_lib.Preprocessed) -> torch.Tensor:
 
 def composite_dispatch(entries, tile_start, tile_count,
                        cfg: RasterizerConfig, *, n_tiles_x: int,
-                       n_tiles_y: int) -> CompositeOut:
+                       n_tiles_y: int, tile_id_base: int = 0,
+                       t_init: Optional[torch.Tensor] = None) -> CompositeOut:
     """The compositor for the device the entries lie on (see
-    ops/kernels/composite.py), with the constants from ``cfg``."""
+    ops/kernels/composite.py), with the constants from ``cfg``. ``t_init``
+    (T,P): transmittance arriving from nearer depth slabs, scaling the
+    early-out test only (parallel/prim_shard.py); ``tile_id_base``: the
+    full-grid id of tile 0 (parallel/tile_shard.py)."""
     return composite_tiles(
         entries, tile_start, tile_count, n_tiles_x=n_tiles_x,
         n_tiles_y=n_tiles_y, tile_h=cfg.tile_h, tile_w=cfg.tile_w,
         chunk=cfg.chunk, alpha_min=cfg.alpha_min, alpha_max=cfg.alpha_max,
-        t_eps=cfg.transmittance_eps)
+        t_eps=cfg.transmittance_eps, t_init=t_init,
+        tile_id_base=tile_id_base)
 
 
 def _tiles_to_image(tiles: torch.Tensor, n_tiles_y: int, n_tiles_x: int,

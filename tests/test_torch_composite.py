@@ -5,7 +5,14 @@ held to the plain version (tests/test_torch_cuda.py). accum and t_final
 within rtol 2e-4 / atol 2e-5 (the JAX suite's image gate); n_contrib
 equal on ≥ 99.9% of pixels — a pixel whose transmittance lands within
 rounding of the cut can stop one entry earlier or later where the
-products are associated differently (the stream kernel's prefix scan)."""
+products are associated differently (the stream kernel's prefix scan).
+
+With ``t_init`` (the transmittance arriving from nearer depth slabs) and
+with ``tile_id_base`` (tile bands) the plain version is held to the XLA
+oracle and to the chunk-grid Pallas kernel (composite.py, interpret mode)
+at the JAX suite's gate for that pair, rtol 1e-5 / atol 1e-6 with n_contrib
+equal; ``slab_transmittance_plain`` to ``slab_transmittance_pallas`` and to
+the port's own cut-free composite at the same gate."""
 import functools
 
 import numpy as np
@@ -19,14 +26,21 @@ from gsplat_tpu.ops import binning as jbin
 from gsplat_tpu.ops import composite_ref as jref
 from gsplat_tpu.ops import preprocess as jpre
 from gsplat_tpu.ops import rasterize as jras
+from gsplat_tpu.ops.pallas.composite import (composite_tiles_pallas,
+                                             slab_transmittance_pallas)
 from gsplat_tpu.ops.pallas.composite_stream import composite_tiles_stream
 from gsplat_tpu_torch.config import RasterizerConfig
-from gsplat_tpu_torch.ops.composite_ref import composite_tiles_plain
+from gsplat_tpu_torch.ops.composite_ref import (composite_tiles_plain,
+                                                slab_transmittance_plain)
 from gsplat_tpu_torch.ops.kernels import composite as tcomp
 
 from torch_parity import DEFAULT_TILES, SMALL, make_scene, t2n
 
 IMG_TOL = dict(rtol=2e-4, atol=2e-5)
+SLAB_TOL = dict(rtol=1e-5, atol=1e-6)     # tests/test_rasterize.py:333,399
+# one column of 8x128 tiles, as the JAX suite's t_init test: 1x2 and 1x6
+ONE_BY_TWO = (8, 128, 16, 128, 16)
+ONE_BY_SIX = (8, 128, 16, 128, 48)
 STRIP_CHUNKS = 4
 
 
@@ -122,3 +136,101 @@ def test_dispatch_routes_by_device_without_fallback(rng):
         tcomp.composite_tiles(*(a.to("meta") for a in args), **geo, **c)
     with pytest.raises(ValueError):
         tcomp.composite_fwd_cuda(*args, **geo, **c)   # CPU tensors: refused
+
+
+def test_plain_t_init_matches_xla_oracle_and_pallas_kernel(rng):
+    """A near-saturating arriving transmittance makes the cut fire early;
+    all three apply it to the early-out test alike."""
+    entries, ts, tc, geo = _frame(rng, ONE_BY_TWO, n=200)
+    c = _consts()
+    T, P = 2, geo["tile_h"] * geo["tile_w"]
+    t_init = rng.uniform(1e-5, 0.3, (T, P)).astype(np.float32)
+    targs = (torch.tensor(entries), torch.tensor(ts), torch.tensor(tc))
+    jargs = (jnp.asarray(entries), jnp.asarray(ts), jnp.asarray(tc))
+    plain = _np(composite_tiles_plain(*targs, **geo, **c,
+                                      t_init=torch.tensor(t_init)))
+    uncut = _np(composite_tiles_plain(*targs, **geo, **c))
+    assert (plain["n_contrib"] <= uncut["n_contrib"]).all()
+    assert (plain["n_contrib"] < uncut["n_contrib"]).mean() > 0.05  # it fired
+    assert (plain["n_contrib"] > 0).mean() > 0.2
+    for name, want in (
+            ("xla", jref.composite_tiles_xla(
+                *jargs, **geo, **c, t_init=jnp.asarray(t_init))),
+            ("pallas", composite_tiles_pallas(
+                *jargs, **geo, **c, t_init=jnp.asarray(t_init),
+                interpret=True))):
+        want = _np(want)
+        for k in ("accum", "t_final"):
+            np.testing.assert_allclose(plain[k], want[k],
+                                       err_msg=f"{name} {k}", **SLAB_TOL)
+        np.testing.assert_array_equal(plain["n_contrib"], want["n_contrib"],
+                                      err_msg=name)
+    # ones change nothing, bit for bit
+    ones = _np(composite_tiles_plain(*targs, **geo, **c,
+                                     t_init=torch.ones((T, P))))
+    for k in ("accum", "t_final", "n_contrib"):
+        np.testing.assert_array_equal(ones[k], uncut[k])
+    with pytest.raises(ValueError):
+        composite_tiles_plain(*targs, **geo, **c, t_init=torch.ones((T, 3)))
+
+
+def test_plain_tile_id_base_matches_oracles(rng):
+    """Rows 2-3 of a 1x6 tile column composited by themselves, with their
+    first tile's id as the base, are rows 2-3 of the whole frame."""
+    entries, ts, tc, geo = _frame(rng, ONE_BY_SIX, n=300)
+    c = _consts()
+    band = dict(geo, n_tiles_y=2)
+    sl = slice(2, 4)
+    whole = _np(composite_tiles_plain(torch.tensor(entries), torch.tensor(ts),
+                                      torch.tensor(tc), **geo, **c))
+    assert (whole["n_contrib"][sl] > 0).mean() > 0.2
+    targs = (torch.tensor(entries), torch.tensor(ts[sl]), torch.tensor(tc[sl]))
+    got = _np(composite_tiles_plain(*targs, **band, **c, tile_id_base=2))
+    for k in ("accum", "t_final", "n_contrib"):
+        np.testing.assert_array_equal(got[k], whole[k][sl], err_msg=k)
+    wrong = _np(composite_tiles_plain(*targs, **band, **c))
+    assert np.abs(wrong["accum"] - got["accum"]).max() > 1e-2
+    jargs = (jnp.asarray(entries), jnp.asarray(ts[sl]), jnp.asarray(tc[sl]))
+    for name, want in (
+            ("xla", jref.composite_tiles_xla(*jargs, **band, **c,
+                                             tile_id_base=2)),
+            ("pallas", composite_tiles_pallas(*jargs, **band, **c,
+                                              tile_id_base=2,
+                                              interpret=True))):
+        want = _np(want)
+        for k in ("accum", "t_final"):
+            np.testing.assert_allclose(got[k], want[k],
+                                       err_msg=f"{name} {k}", **SLAB_TOL)
+        np.testing.assert_array_equal(got["n_contrib"], want["n_contrib"],
+                                      err_msg=name)
+
+
+@pytest.mark.parametrize("shape", [SMALL, DEFAULT_TILES],
+                         ids=["8x128", "32x32"])
+def test_slab_transmittance_plain_matches_pallas_and_cutfree(rng, shape):
+    entries, ts, tc, geo = _frame(rng, shape, n=300)
+    c = {k: v for k, v in _consts().items() if k != "t_eps"}
+    targs = (torch.tensor(entries), torch.tensor(ts), torch.tensor(tc))
+    got = t2n(slab_transmittance_plain(*targs, **geo, **c))
+    assert (got < 1e-3).any() and (got <= 1).all() and (got[1] < 1).any()
+    # an empty tile gives 1 and leaves the others as they were
+    tc0 = tc.copy()
+    tc0[1] = 0
+    emptied = t2n(slab_transmittance_plain(targs[0], targs[1],
+                                           torch.tensor(tc0), **geo, **c))
+    assert (emptied[1] == 1.0).all()
+    np.testing.assert_array_equal(np.delete(emptied, 1, 0),
+                                  np.delete(got, 1, 0))
+    want = np.asarray(slab_transmittance_pallas(
+        jnp.asarray(entries), jnp.asarray(ts), jnp.asarray(tc), **geo, **c,
+        interpret=True))
+    np.testing.assert_allclose(got, want, **SLAB_TOL)
+    cutfree = composite_tiles_plain(*targs, **geo, **c, t_eps=0.0)
+    np.testing.assert_allclose(got, t2n(cutfree.t_final), **SLAB_TOL)
+    # the dispatch takes the plain version for CPU tensors, and only those
+    np.testing.assert_array_equal(
+        t2n(tcomp.slab_transmittance(*targs, **geo, **c)), got)
+    with pytest.raises(ValueError):
+        tcomp.slab_transmittance(*(a.to("meta") for a in targs), **geo, **c)
+    with pytest.raises(ValueError):
+        tcomp.slab_transmittance_cuda(*targs, **geo, **c)

@@ -8,6 +8,12 @@ Both pass the gradient straight through the alpha_max = 0.99 clamp. JAX's
 XLA oracle (composite_tiles_xla) differentiates the clamp instead, so it
 agrees below the clamp and not at opacity 0.999.
 
+With ``t_init`` (depth slabs) autograd through the plain version is held to
+the chunk-grid Pallas kernel's backward (composite.py, interpret mode), whose
+forward takes the same ``t_init``: rtol 1e-2 / atol 1e-4, the JAX suite's own
+gate for that pair under a sum loss (tests/test_rasterize.py:350), and the
+gradient gate under the N(0,1) cotangents used here.
+
 The CUDA kernel's replay order is also checked here, written out in torch:
 back to front from t_final meets the gate on a deep tile, where the TPU
 kernel's front-to-back suffix-by-subtraction does not."""
@@ -21,6 +27,7 @@ import jax
 import jax.numpy as jnp
 
 from gsplat_tpu.ops import composite_ref as jref
+from gsplat_tpu.ops.pallas.composite import composite_tiles_pallas
 from gsplat_tpu.ops.pallas.composite_stream import composite_tiles_stream
 from gsplat_tpu_torch.config import RasterizerConfig
 from gsplat_tpu_torch.ops.composite_ref import composite_tiles_plain
@@ -72,10 +79,10 @@ def _jax_d_entries(entries, ts, tc, ga, gt, *, stream):
     return jax.grad(loss)(entries)
 
 
-def _plain_d_entries(entries, ts, tc, ga, gt, geo):
+def _plain_d_entries(entries, ts, tc, ga, gt, geo, **kw):
     e = torch.tensor(entries, requires_grad=True)
     out = composite_tiles_plain(e, torch.tensor(ts), torch.tensor(tc), **geo,
-                                **CONSTS)
+                                **CONSTS, **kw)
     ((out.accum * torch.tensor(ga)).sum()
      + (out.t_final * torch.tensor(gt)).sum()).backward()
     return t2n(e.grad), out
@@ -102,6 +109,44 @@ def test_plain_backward_matches_stream_kernel(rng, opacity):
         np.testing.assert_allclose(got[:, :10], xla[:, :10], **GRAD_TOL)
     else:                             # the XLA oracle zeroes the clamp
         assert np.abs(got[:, 5] - xla[:, 5]).max() > 1e-2
+
+
+@functools.partial(jax.jit, static_argnames=("tile_id_base",))
+def _jax_d_entries_pallas(entries, ts, tc, ga, gt, t_init, *, tile_id_base):
+    def loss(e):
+        out = composite_tiles_pallas(e, ts, tc, t_init=t_init,
+                                     tile_id_base=tile_id_base,
+                                     interpret=True, **GEO, **CONSTS)
+        return (out.accum * ga).sum() + (out.t_final * gt).sum()
+    return jax.grad(loss)(entries)
+
+
+@pytest.mark.parametrize("tile_id_base", [0, 2])
+def test_plain_backward_with_t_init_matches_pallas_kernel(rng, tile_id_base):
+    """The slab path's gradient: a forward whose cut t_init moved earlier,
+    and a non-zero cotangent on t_final (the merge multiplies farther slabs
+    by this slab's t_final). t_init itself gets no gradient. With base 2 the
+    two tiles are the second row of a grid two tiles wide."""
+    n = 40
+    entries = _entries(rng, n, 0.9, 8, 8, 2, 96)
+    entries[:, 1] += 8 * (tile_id_base // GEO["n_tiles_x"])
+    ts = np.array([0, n], np.int32)
+    tc = np.array([n, n], np.int32)
+    ga, gt = _cotangents(rng, 2, 64)
+    t_init = rng.uniform(1e-4, 0.3, (2, 64)).astype(np.float32)
+    ti = torch.tensor(t_init, requires_grad=True)
+    got, out = _plain_d_entries(entries, ts, tc, ga, gt, GEO, t_init=ti,
+                                tile_id_base=tile_id_base)
+    assert ti.grad is None
+    _, uncut = _plain_d_entries(entries, ts, tc, ga, gt, GEO,
+                                tile_id_base=tile_id_base)
+    assert (out.n_contrib < uncut.n_contrib).float().mean() > 0.2
+    assert (out.n_contrib > 0).float().mean() > 0.5
+    want = np.asarray(_jax_d_entries_pallas(
+        *map(jnp.asarray, (entries, ts, tc, ga, gt, t_init)),
+        tile_id_base=tile_id_base))
+    np.testing.assert_allclose(got[:, :10], want[:, :10], **GRAD_TOL)
+    assert np.abs(got[:, :10]).max() > 0.1
 
 
 def _replay(e, nc, t_final, accum, ga, gt, tile_w, alpha_min, alpha_max,

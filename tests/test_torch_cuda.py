@@ -5,7 +5,12 @@ version on the same inputs:
 - the compositor backward against autograd through the plain compositor,
   and the SSIM backward against autograd through the plain SSIM: rtol 5e-3
   / atol 1e-6 and rtol 2e-4 / atol 1e-6 (the JAX suite's gates);
-- the SSIM map: rtol 1e-5 / atol 1e-6.
+- the SSIM map: rtol 1e-5 / atol 1e-6;
+- the slab transmittance: rtol 1e-5 / atol 1e-6 against its plain version
+  and against the compositor kernel's cut-free t_final;
+- the compositor with ``t_init`` and ``tile_id_base`` and its backward from
+  such a forward, at the compositor's gates; the depth-slab and tile-band
+  renders on the card against the same on the CPU.
 The render and one training step on the card are held to the same on the
 CPU; there the entry gather's gradient adds with atomics in an order that
 varies from run to run, which the gradient gate covers. These tests need
@@ -24,9 +29,11 @@ from gsplat_tpu_torch.core.camera import CameraView
 from gsplat_tpu_torch.models import gaussian_model as gm
 from gsplat_tpu_torch.ops import rasterize
 from gsplat_tpu_torch.ops import ssim as tssim
-from gsplat_tpu_torch.ops.composite_ref import composite_tiles_plain
+from gsplat_tpu_torch.ops.composite_ref import (composite_tiles_plain,
+                                                slab_transmittance_plain)
 from gsplat_tpu_torch.ops.kernels import composite as tcomp
 from gsplat_tpu_torch.ops.kernels import ssim as kssim
+from gsplat_tpu_torch.parallel import prim_shard, tile_shard
 from gsplat_tpu_torch.train import trainer
 
 pytestmark = pytest.mark.cuda
@@ -167,6 +174,125 @@ def test_render_on_card_backpropagates_through_kernel(cuda_device):
     for k in gm.TRAINABLE_FIELDS:
         torch.testing.assert_close(grads[1][k], grads[0][k], **GRAD_TOL)
     assert float(grads[1]["xyz"].abs().max()) > 0
+
+
+def _frame_tables(shape, device):
+    th, tw, chunk, W, H = shape
+    g, cam = _scene(device)
+    cfg = _cfg(th, tw, chunk)
+    with torch.no_grad():
+        e = rasterize.build_entries(g, cam, W, H, cfg)
+    assert int(e.binning.overflow) == 0
+    geo = dict(n_tiles_x=e.n_tiles_x, n_tiles_y=e.n_tiles_y, tile_h=th,
+               tile_w=tw, alpha_min=cfg.alpha_min, alpha_max=cfg.alpha_max)
+    fwd_kw = dict(chunk=chunk, t_eps=cfg.transmittance_eps)
+    return (e.entries, e.binning.tile_start, e.binning.tile_count), geo, \
+        fwd_kw
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_slab_transmittance_kernel_matches_plain(shape, cuda_device):
+    args, geo, fwd_kw = _frame_tables(shape, cuda_device)
+    kw = dict(geo, chunk=fwd_kw["chunk"])
+    before = tcomp.slab_transmittance_cuda.launches
+    got = tcomp.slab_transmittance_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert tcomp.slab_transmittance_cuda.launches == before + 1
+    torch.testing.assert_close(got, slab_transmittance_plain(*args, **kw),
+                               rtol=1e-5, atol=1e-6)
+    # the same products in the same order as the compositor's, cut-free
+    cutfree = tcomp.composite_fwd_cuda(*args, **kw, t_eps=0.0).t_final
+    torch.testing.assert_close(got, cutfree, rtol=0, atol=0)
+    assert float(got.min()) < 1e-3 and float(got.max()) <= 1.0
+    # an empty tile gives 1; the dispatch launches the kernel for CUDA
+    tc = args[2].clone()
+    tc[0] = 0
+    out = tcomp.slab_transmittance(args[0], args[1], tc, **kw)
+    assert tcomp.slab_transmittance_cuda.launches == before + 2
+    assert bool((out[0] == 1.0).all())
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_kernels_with_t_init_and_tile_id_base_match_plain(shape,
+                                                          cuda_device):
+    """The slab and band forms: a forward whose cut a random t_init moved
+    earlier, on the lower tile rows with their tile_id_base, and the
+    backward from that forward's outputs under non-zero cotangents of accum
+    and of t_final."""
+    (entries, ts, tc), geo, fwd_kw = _frame_tables(shape, cuda_device)
+    base = geo["n_tiles_x"] * (geo["n_tiles_y"] // 2)
+    ts, tc = ts[base:].contiguous(), tc[base:].contiguous()
+    geo = dict(geo, n_tiles_y=geo["n_tiles_y"] - geo["n_tiles_y"] // 2,
+               tile_id_base=base)
+    T, P = ts.shape[0], geo["tile_h"] * geo["tile_w"]
+    rng = np.random.default_rng(4)
+    t_init, ga, gt = (torch.tensor(v, dtype=torch.float32,
+                                   device=cuda_device)
+                      for v in (rng.uniform(1e-5, 0.3, (T, P)),
+                                rng.standard_normal((T, 4, P)),
+                                rng.standard_normal((T, P))))
+    x = entries.detach().requires_grad_()
+    plain = composite_tiles_plain(x, ts, tc, **geo, **fwd_kw, t_init=t_init)
+    ((plain.accum * ga).sum() + (plain.t_final * gt).sum()).backward()
+    kern = tcomp.composite_fwd_cuda(entries, ts, tc, **geo, **fwd_kw,
+                                    t_init=t_init)
+    uncut = tcomp.composite_fwd_cuda(entries, ts, tc, **geo, **fwd_kw)
+    for k in ("accum", "t_final"):
+        torch.testing.assert_close(getattr(kern, k), getattr(plain, k),
+                                   **IMG_TOL)
+    assert float((kern.n_contrib == plain.n_contrib).float().mean()) >= 0.999
+    assert bool((kern.n_contrib <= uncut.n_contrib).all())
+    assert float((kern.n_contrib < uncut.n_contrib).float().mean()) > 0.01
+    d = tcomp.composite_bwd_cuda(entries, ts, tc, kern.t_final,
+                                 kern.n_contrib, ga, gt, **geo)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(d[:, :10], x.grad[:, :10], **GRAD_TOL)
+    assert float(d[:, :10].abs().max()) > 0.0
+    # t_init of ones is the kernel without one, bit for bit
+    ones = tcomp.composite_fwd_cuda(entries, ts, tc, **geo, **fwd_kw,
+                                    t_init=torch.ones_like(t_init))
+    for k in ("accum", "t_final", "n_contrib"):
+        assert torch.equal(getattr(ones, k), getattr(uncut, k)), k
+
+
+def test_slab_and_band_renders_on_card_match_cpu(cuda_device):
+    """render_prim_sharded and render_tile_sharded on the card launch their
+    kernels once per slab or band, forward and backward, and give the CPU
+    route's images and gradients."""
+    W, H = 96, 128
+    cfg = _cfg(32, 32, 64)
+    renders = {
+        "slab": lambda p, c, bg: prim_shard.render_prim_sharded(
+            p, c, W, H, bg, cfg, n_slabs=4, m_cap=400 * 12)[:2],
+        "band": lambda p, c, bg: tile_shard.render_tile_sharded(
+            p, c, W, H, bg, cfg, n_bands=2)[:2]}
+    want_launches = {"slab": (4, 4, 4), "band": (2, 2, 0)}
+    for name, render in renders.items():
+        outs = []
+        for dev in ("cpu", cuda_device):
+            g, cam = _scene(dev)
+            params = {k: getattr(g, k).clone().requires_grad_()
+                      for k in gm.TRAINABLE_FIELDS}
+            before = (tcomp.composite_fwd_cuda.launches,
+                      tcomp.composite_bwd_cuda.launches,
+                      tcomp.slab_transmittance_cuda.launches)
+            img, inv = render(gm.with_trainables(g, params), cam,
+                              torch.full((3,), 0.25, device=dev))
+            (img.mean() + 0.1 * inv.mean()).backward()
+            after = (tcomp.composite_fwd_cuda.launches,
+                     tcomp.composite_bwd_cuda.launches,
+                     tcomp.slab_transmittance_cuda.launches)
+            moved = tuple(a - b for a, b in zip(after, before))
+            assert moved == (want_launches[name] if dev != "cpu"
+                             else (0, 0, 0)), (name, moved)
+            outs.append((img.detach().cpu(), inv.detach().cpu(),
+                         {k: v.grad.cpu() for k, v in params.items()}))
+        (img_c, inv_c, g_c), (img_g, inv_g, g_g) = outs
+        torch.testing.assert_close(img_g, img_c, **IMG_TOL)
+        torch.testing.assert_close(inv_g, inv_c, **IMG_TOL)
+        for k in gm.TRAINABLE_FIELDS:
+            torch.testing.assert_close(g_g[k], g_c[k], **GRAD_TOL)
+        assert float(g_g["xyz"].abs().max()) > 0
 
 
 def _images(device, shape=(3, 100, 130), seed=2):
