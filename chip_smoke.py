@@ -22,6 +22,12 @@ Phases, each printing its own line:
    cut-free t_final; the compositor backward on 16 tiles of slab 1 from
    its ``t_init`` forward under non-zero cotangents of accum and t_final,
    and again with a ``tile_id_base``;
+3d. the blocked prefix sum against a float64 cumsum at the number of rows
+   one shard's backward of phase 7 gives it (held to twice the error of
+   ``torch.cumsum`` in f32), against its plain version bit for bit on
+   integers, through ``masked_presort_prefix`` with NaN rows past the live
+   ones, and twice on one input; timed beside its plain version, which is
+   also the one library call that computes it (``torch.cumsum``);
 4. the render path at full width: bench.py's workload — 200,000 gaussians,
    SH degree 3, 1920x1080 — written to a PLY, loaded back through the port's
    loader, and rendered from 5 camera poses under torch.no_grad(), with the
@@ -36,7 +42,13 @@ Phases, each printing its own line:
    torch.no_grad() and one forward plus backward of an L1 loss, held to
    the single render and its gradient, with the launch counts read around
    exactly those; ``render_tile_sharded`` with 2 bands, held to the single
-   render; one profiled slab render.
+   render; one profiled slab render;
+7. gaussian-sharded storage at full width, on the phase-5 scene with 4 row
+   shards, for each transient (replicated, ring, slab): 5 renders under
+   torch.no_grad() held to the single render, one warm-up and 3 timed
+   sharded train steps, and the step's gradients held to the replicated
+   transient's and to the single render's under the same loss, with the
+   launch counts read around exactly those; one profiled ring step.
 Then a ``kernels`` JSON line with one object per kernel of the KERNELS
 table, the nvidia-smi line, and a final JSON line.
 Any failure raises and exits non-zero; without CUDA it exits non-zero
@@ -55,7 +67,8 @@ from gsplat_tpu_torch.config import OptimizationConfig, RasterizerConfig
 from gsplat_tpu_torch.core import sh as sh_lib
 from gsplat_tpu_torch.core.camera import CameraView
 from gsplat_tpu_torch.models import gaussian_model as gm
-from gsplat_tpu_torch.ops import knn, rasterize
+from gsplat_tpu_torch.ops import binning as binning_lib
+from gsplat_tpu_torch.ops import knn, losses, rasterize
 from gsplat_tpu_torch.ops import ssim as ssim_lib
 from gsplat_tpu_torch.ops.composite_ref import (composite_tiles_plain,
                                                 slab_transmittance_plain)
@@ -63,8 +76,10 @@ from gsplat_tpu_torch.ops.kernels import build
 from gsplat_tpu_torch.ops.kernels.composite import (composite_bwd_cuda,
                                                     composite_fwd_cuda,
                                                     slab_transmittance_cuda)
+from gsplat_tpu_torch.ops.kernels.scan import (blocked_cumsum_16_cuda,
+                                               blocked_cumsum_16_plain)
 from gsplat_tpu_torch.ops.kernels.ssim import ssim_bwd_cuda, ssim_fwd_cuda
-from gsplat_tpu_torch.parallel import prim_shard, tile_shard
+from gsplat_tpu_torch.parallel import prim_shard, sharded, tile_shard
 from gsplat_tpu_torch.scene import ply as ply_lib
 from gsplat_tpu_torch.train import trainer
 
@@ -86,6 +101,12 @@ SLAB_GRAD_TOL = dict(rtol=1e-2, atol=1e-5)
 SLAB_GRAD_REL_MAX = 1e-4
 N_SLABS = 4
 N_BANDS = 2
+N_SHARDS = 4
+N_SHARD_STEPS = 3
+# the sharded render against the single render: tiles are independent, so a
+# band is the single render's rows (tests/test_parallel.py:255-259)
+SHARD_IMG_TOL = dict(rtol=1e-6, atol=1e-7)
+SCAN_BLOCK = rasterize.PREFIX_BLOCK   # rows per block of the prefix sums
 # published H100 SXM peaks (NVIDIA data sheet), for the bound
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -187,6 +208,22 @@ def profile_call(label, fn, n_top=12):
     print(f"profile {label}: wall {wall_ms:.3f} ms under the profiler, "
           f"device busy {busy_ms:.3f} ms in {n_ops} device ops; top: {top}",
           flush=True)
+
+
+def kernel_device_ms(fn, reps):
+    """Mean device time per call of fn() over reps calls, summed over the
+    device kernels it launches, from torch.profiler: what CUDA events
+    around one call cannot resolve when the call's host time exceeds its
+    kernel's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
 
 
 def bound(n_bytes, ops):
@@ -605,26 +642,35 @@ PALLAS = "gsplat_tpu/ops/pallas/"
 # Every kernel of the port: its wrapper (which counts its launches), the TPU
 # kernel bodies it replaces, and its launches per training step (the SSIM
 # backward is two kernels), per slab render (forward; the backward kernel in
-# the backward) and per band render. The build, the launch checks and the
-# ``kernels`` line all read this one table.
+# the backward), per band render and per sharded step (the scan in the
+# backward of the ring and slab transients only; the sharded step's loss
+# takes the plain SSIM, as the JAX package's does). The build, the launch
+# checks and the ``kernels`` line all read this one table.
 KERNELS = {
     "composite_fwd": dict(
         wrapper=composite_fwd_cuda, per_step=1, per_slab_render=N_SLABS,
-        per_band_render=N_BANDS,
+        per_band_render=N_BANDS, per_sharded_step=N_SHARDS,
         replaces=["composite_stream.py:82", "composite.py:167"]),
     "composite_bwd": dict(
         wrapper=composite_bwd_cuda, per_step=1, per_slab_render=N_SLABS,
-        per_band_render=N_BANDS,
+        per_band_render=N_BANDS, per_sharded_step=N_SHARDS,
         replaces=["composite_stream.py:230", "composite.py:406"]),
     "slab_tmit": dict(
         wrapper=slab_transmittance_cuda, per_step=0,
-        per_slab_render=N_SLABS, per_band_render=0,
+        per_slab_render=N_SLABS, per_band_render=0, per_sharded_step=0,
         replaces=["composite.py:326"]),
+    "scan": dict(wrapper=blocked_cumsum_16_cuda, per_step=0,
+                 per_slab_render=0, per_band_render=0,
+                 per_sharded_step=N_SHARDS, replaces=["scan.py:49"]),
     "ssim_fwd": dict(wrapper=ssim_fwd_cuda, per_step=1, per_slab_render=0,
-                     per_band_render=0, replaces=["ssim_kernel.py:90"]),
+                     per_band_render=0, per_sharded_step=0,
+                     replaces=["ssim_kernel.py:90"]),
     "ssim_bwd": dict(wrapper=ssim_bwd_cuda, per_step=2, per_slab_render=0,
-                     per_band_render=0, replaces=["ssim_kernel.py:98"]),
+                     per_band_render=0, per_sharded_step=0,
+                     replaces=["ssim_kernel.py:98"]),
 }
+# the kernels only a backward launches
+BACKWARD_ONLY = ("composite_bwd", "scan")
 
 
 def reset_launches():
@@ -636,11 +682,13 @@ def read_launches():
     return {name: k["wrapper"].launches for name, k in KERNELS.items()}
 
 
-def check_launches(got, key, times, what, backward=True):
+def check_launches(got, key, times, what, backward=True, never=()):
     """Every kernel launched exactly its ``key`` count times ``times``; a
-    run without a backward launched composite_bwd no time."""
+    run without a backward launched the backward's kernels no time, and the
+    kernels named in ``never`` no time either."""
     for name, k in KERNELS.items():
-        want = k[key] * times * (backward or name != "composite_bwd")
+        idle = name in never or (not backward and name in BACKWARD_ONLY)
+        want = 0 if idle else k[key] * times
         check(got[name] == want, f"{name} launched {got[name]} times in "
               f"{what}, expected {want}")
 
@@ -711,6 +759,36 @@ def l1_grads(render, g, gt):
     return float(loss.detach()), {k: v.grad for k, v in params.items()}
 
 
+def hold_grads(label, against, grads, want, vis):
+    """Hold the gradients ``grads`` of a split render to ``want``: finite,
+    zero on gaussians no pixel sees, every element within SLAB_GRAD_TOL,
+    and each field's largest error within SLAB_GRAD_REL_MAX of its largest
+    gradient. Returns the worst ratio of the two."""
+    grad_err = {}
+    for k, v in grads.items():
+        check(bool(torch.isfinite(v).all()),
+              f"{label}: non-finite gradient of {k}")
+        check(float(v[~vis].abs().sum()) == 0.0,
+              f"{label}: gradient of {k} on invisible gaussians")
+        d = (v - want[k]).abs()
+        out = d > SLAB_GRAD_TOL["atol"] + SLAB_GRAD_TOL["rtol"] * want[k].abs()
+        grad_err[k] = (float(d.max()), float(want[k].abs().max()),
+                       float(out.float().mean()))
+    print(f"{label} gradients vs {against} (max abs err, max |grad|, "
+          f"share outside rtol {SLAB_GRAD_TOL['rtol']} / atol "
+          f"{SLAB_GRAD_TOL['atol']}; also held: max abs err <= "
+          f"{SLAB_GRAD_REL_MAX} x max |grad|): "
+          + "; ".join(f"{k} {a:.3e} {b:.3e} {c:.2e}"
+                      for k, (a, b, c) in grad_err.items()), flush=True)
+    for k, (err, size, share) in grad_err.items():
+        check(share == 0.0, f"{label} gradient of {k} outside the gate on "
+              f"{share} of its elements")
+        check(size > 0 and err <= SLAB_GRAD_REL_MAX * size,
+              f"{label} gradient of {k}: max error {err} against a largest "
+              f"gradient of {size}")
+    return max(err / size for err, size, _ in grad_err.values())
+
+
 def slab_phase(g, cams, cam, gt, cfg, m_cap, pairs):
     """Phase 6: the depth-slab and tile-band renders at full width on the
     training scene, held to the single render and its gradient. Returns the
@@ -772,27 +850,7 @@ def slab_phase(g, cams, cam, gt, cfg, m_cap, pairs):
         vis = rasterize.render(g, cam, W, H, bg, cfg).radii > 0
     check(np.isfinite(loss) and abs(loss - loss1) <= 1e-4,
           f"slab loss {loss} vs single {loss1}")
-    grad_err = {}
-    for k, v in grads.items():
-        check(bool(torch.isfinite(v).all()), f"non-finite gradient of {k}")
-        check(float(v[~vis].abs().sum()) == 0.0,
-              f"gradient of {k} on invisible gaussians")
-        d = (v - want[k]).abs()
-        out = d > SLAB_GRAD_TOL["atol"] + SLAB_GRAD_TOL["rtol"] * want[k].abs()
-        grad_err[k] = (float(d.max()), float(want[k].abs().max()),
-                       float(out.float().mean()))
-    print(f"slab gradients vs the single render's (max abs err, max |grad|, "
-          f"share outside rtol {SLAB_GRAD_TOL['rtol']} / atol "
-          f"{SLAB_GRAD_TOL['atol']}; also held: max abs err <= "
-          f"{SLAB_GRAD_REL_MAX} x max |grad|): "
-          + "; ".join(f"{k} {a:.3e} {b:.3e} {c:.2e}"
-                      for k, (a, b, c) in grad_err.items()), flush=True)
-    for k, (err, size, share) in grad_err.items():
-        check(share == 0.0, f"slab gradient of {k} outside the gate on "
-              f"{share} of its elements")
-        check(size > 0 and err <= SLAB_GRAD_REL_MAX * size,
-              f"slab gradient of {k}: max error {err} against a largest "
-              f"gradient of {size}")
+    hold_grads("slab", "the single render's", grads, want, vis)
     slab_launches = {k: fwd_launches[k] + fb_launches[k] for k in KERNELS}
     print(f"slab render {W}x{H}, {N_GAUSS} gaussians, SH 3, {N_SLABS} slabs, "
           f"{N_POSES} poses: frame ms {[round(x, 3) for x in frame_ms]} "
@@ -847,6 +905,257 @@ def slab_phase(g, cams, cam, gt, cfg, m_cap, pairs):
             slab(g, cam)
     profile_call("one slab render", one_slab_render)
     return slab_launches, band_launches
+
+
+def band_pairs(g, cam, cfg):
+    """pairs[k][o]: the (tile, gaussian) pairs that owner o's rows put into
+    shard k's band of tile rows, for N_SHARDS row shards and bands."""
+    with torch.no_grad():
+        pre = rasterize.build_entries(g, cam, W, H, cfg).pre
+    th, tw = cfg.tile_h, cfg.tile_w
+    rows_loc = -(-(-(-H // th)) // N_SHARDS)
+    valid = (pre.radius > 0) & (pre.rx > 0) & (pre.ry > 0)
+    table = []
+    for k in range(N_SHARDS):
+        x0, y0, x1, y1 = binning_lib.tile_rect(
+            pre.mean2d, pre.rx, pre.ry, -(-W // tw), rows_loc, th, tw,
+            tile_row_base=k * rows_loc)
+        counts = torch.where(valid, torch.clamp(x1 - x0, min=0)
+                             * torch.clamp(y1 - y0, min=0), 0)
+        table.append(counts.reshape(N_SHARDS, -1).sum(dim=1).tolist())
+    return table
+
+
+def sharded_setup(g, cams, cfg):
+    """The sharded paths' config, its pair capacity right-sized from a
+    probe of every camera of phase 7: a shard's list must hold 1.3x the
+    fullest band's pairs, and in the slab transient every arriving slab
+    gets a quarter of that list to itself, so a quarter must hold 1.3x the
+    most any one owner puts into any band. Returns (config, per-shard
+    capacity, the first camera's pairs[k][o])."""
+    tables = [band_pairs(g, cam, cfg) for cam in cams]
+    per_band = max(sum(row) for t in tables for row in t)
+    per_slab = max(max(row) for t in tables for row in t)
+    need = int(1.3 * max(per_band, N_SHARDS * per_slab))
+    scfg = dataclasses.replace(
+        cfg, pairs_per_gaussian=(need + cfg.chunk) * N_SHARDS / (1.5 * N_GAUSS))
+    m_loc = sharded.shard_capacity(N_GAUSS, scfg, N_SHARDS)
+    check(need <= m_loc <= need + 2 * cfg.chunk,
+          f"per-shard capacity {m_loc}, wanted {need}")
+    return scfg, m_loc, tables[0]
+
+
+def check_scan(dev, rng, m_rows):
+    """Phase 3d: the blocked prefix sum at (m_rows, 16), the rows one
+    shard's backward of phase 7 scans, against a float64 cumsum and against
+    its plain version. The plain version is ``torch.cumsum`` over the
+    (B, L, 16) view, which is also the one library call that computes this
+    function, so ``library_ms`` times the same call."""
+    L = SCAN_BLOCK
+    B = m_rows // L
+    x = torch.tensor(rng.standard_normal((m_rows, 16)).astype(np.float32),
+                     device=dev)
+    intra, tot = blocked_cumsum_16_cuda(x, L)
+    torch.cuda.synchronize()
+    plain, plain_tot = blocked_cumsum_16_plain(x, L)
+    ref = torch.cumsum(x.double().reshape(B, L, 16), dim=1).reshape(m_rows, 16)
+    err = float((intra.double() - ref).abs().max())
+    lib_err = float((plain.double() - ref).abs().max())
+    vs_plain = float((intra - plain).abs().max())
+    # (a) the gate: no more than twice as far from float64 as torch.cumsum
+    check(err <= 2 * lib_err, f"scan is {err} from the float64 cumsum, "
+          f"torch.cumsum in f32 {lib_err}")
+    check(torch.equal(tot, intra[L - 1::L]),
+          "scan: block_tot is not intra's last rows")
+    check(torch.allclose(tot, plain_tot, rtol=1e-5, atol=1e-3),
+          "scan: block_tot disagrees with the plain version")
+    # (b) integers below 2^24 in every partial sum: exact in any order
+    xi = torch.tensor(rng.integers(0, 2048, (m_rows, 16)).astype(np.float32),
+                      device=dev)
+    ki, kt = blocked_cumsum_16_cuda(xi, L)
+    pi, pt = blocked_cumsum_16_plain(xi, L)
+    check(torch.equal(ki, pi) and torch.equal(kt, pt),
+          "scan: not exact on integers")
+    # (c) NaN in every row no live presort entry points at: the mask of
+    # masked_presort_prefix must keep them out of every prefix and total
+    m_cap, total = m_rows - 100, m_rows - 5000
+    m_out = m_cap + 3000
+    inv_src = torch.tensor(rng.permutation(m_out)[:m_cap], device=dev)
+    d_aligned = torch.tensor(
+        rng.standard_normal((m_out, 16)).astype(np.float32), device=dev)
+    d_aligned[inv_src[total:]] = float("nan")
+    mi, mb, _ = rasterize.masked_presort_prefix(
+        d_aligned, inv_src, torch.tensor(total, device=dev), m_cap)
+    check(bool(torch.isfinite(mi).all()) and bool(torch.isfinite(mb).all()),
+          "scan: a NaN past the live rows reached a prefix")
+    want = d_aligned[inv_src[:total]].double().sum(dim=0)
+    got = rasterize._prefix_at(mi, mb, L, torch.tensor([m_cap], device=dev))[0]
+    check(torch.allclose(got.double(), want, rtol=1e-4, atol=1e-2),
+          "scan: the prefix at the end is not the sum of the live rows")
+    # (d) a fixed order of additions: the same bits on a second launch
+    again, tot2 = blocked_cumsum_16_cuda(x, L)
+    check(torch.equal(again, intra) and torch.equal(tot2, tot),
+          "scan: two launches on one input differ")
+
+    ms = median_ms(lambda: blocked_cumsum_16_cuda(x, L), 20)
+    plain_ms = median_ms(lambda: blocked_cumsum_16_plain(x, L), 20)
+    view = x.view(B, L, 16)
+    library_ms = median_ms(lambda: torch.cumsum(view, dim=1), 20)
+    # by CUDA events a call this short is as long as its wrapper's host
+    # time; the profiler reads the kernels' own time on the device
+    dev_ms = kernel_device_ms(lambda: blocked_cumsum_16_cuda(x, L), 20)
+    lib_dev_ms = kernel_device_ms(lambda: torch.cumsum(view, dim=1), 20)
+    bnd = bound(m_rows * 128 + B * 64, m_rows * 16)
+    print(f"kernel vs plain: scan at ({m_rows}, 16), {B} blocks of {L}: "
+          f"max_abs_err against the float64 cumsum {err:.3e} (torch.cumsum "
+          f"in f32: {lib_err:.3e}; gate: at most twice that), against the "
+          f"plain version {vs_plain:.3e}; exact on integers; finite with a "
+          f"NaN tail; two launches equal; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, torch.cumsum {library_ms:.4f} ms (CUDA "
+          f"events around one call); on the device alone, by the profiler: "
+          f"kernel {dev_ms:.4f} ms, torch.cumsum {lib_dev_ms:.4f} ms; bound "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, device_ms=dev_ms,
+                library_device_ms=lib_dev_ms, **bnd)
+
+
+def single_loss_grads(g, exposure, cam, gt, bg, cfg, opt):
+    """The sharded step's loss, (1 - l)·L1 + l·(1 - SSIM) with the plain
+    SSIM, through the single render: (loss, gradients by field, tap
+    gradient, radii)."""
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in gm.trainables(g).items()}
+    tap = torch.zeros((g.capacity, 2), device=g.device, requires_grad=True)
+    out = rasterize.render(gm.with_trainables(g, params), cam, W, H, bg, cfg,
+                           mean2d_tap=tap)
+    loss = (1.0 - opt.lambda_dssim) * losses.l1_loss(out.image, gt) \
+        + opt.lambda_dssim * (1.0 - losses.ssim(out.image, gt))
+    got = torch.autograd.grad(loss, [*params.values(), tap])
+    check(int(out.overflow) == 0, "single render overflow")
+    return (float(loss.detach()), dict(zip(params, got[:-1])), got[-1],
+            out.radii.detach())
+
+
+def sharded_phase(state, cams, cam, gt, cfg, scfg, m_loc, pairs):
+    """Phase 7: gaussian-sharded storage at full width on the training
+    scene, N_SHARDS row shards and bands, each transient held to the single
+    render and its gradient. Returns the launch counts summed over the
+    three transients' counted renders, steps and gradient calls."""
+    dev = gt.device
+    g = state.gaussians
+    opt = OptimizationConfig()
+    bg = torch.zeros(3, device=dev)
+    ones = torch.ones((1, H, W), device=dev)
+    zeros = torch.zeros((1, H, W), device=dev)
+    kw = dict(image_width=W, image_height=H)
+    step_kw = dict(opt=opt, rcfg=scfg, antialiasing=False,
+                   train_test_exp=False, use_depth=False, **kw)
+    print(f"sharded storage: {N_SHARDS} shards of {N_GAUSS // N_SHARDS} rows "
+          f"and {-(-(-(-H // cfg.tile_h)) // N_SHARDS)} tile rows; pairs of "
+          f"owner o in band k, k by o: {pairs}; per-shard capacity {m_loc} "
+          f"(pairs_per_gaussian {scfg.pairs_per_gaussian:.3f})", flush=True)
+
+    with torch.no_grad():
+        singles = [rasterize.render(g, c, W, H, bg, cfg) for c in cams]
+    loss1, want, want_tap, radii1 = single_loss_grads(
+        g, state.exposure, cam, gt, bg, cfg, opt)
+    vis = radii1 > 0
+    total = {name: 0 for name in KERNELS}
+    replicated = None
+    steps = {}
+    for transient in sharded.TRANSIENTS:
+        never = ("scan",) if transient == "replicated" else ()
+        render = sharded.make_sharded_render(N_SHARDS, cfg=scfg,
+                                             transient=transient, **kw)
+        step = sharded.make_sharded_train_step(
+            N_SHARDS, opt=opt, rcfg=scfg, spatial_lr_scale=1.0,
+            transient=transient, **kw)
+        steps[transient] = step
+        with torch.no_grad():
+            render(g, cams[0], bg)                           # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            frame_ms, img_err = [], []
+            for c, single in zip(cams, singles):
+                t = time.perf_counter()
+                out = render(g, c, bg)
+                torch.cuda.synchronize()
+                frame_ms.append((time.perf_counter() - t) * 1e3)
+                check(int(out.overflow) == 0,
+                      f"{transient} overflow {int(out.overflow)}")
+                check(int(out.num_pairs) >= int(single.num_pairs),
+                      f"{transient} pair count")
+                for a, b in ((out.image, single.image),
+                             (out.invdepth, single.invdepth)):
+                    check(tuple(a.shape) == tuple(b.shape)
+                          and bool(torch.isfinite(a).all()),
+                          f"{transient}: shape or non-finite image")
+                    img_err.append(float((a - b).abs().max()))
+                    check(torch.allclose(a, b, **SHARD_IMG_TOL),
+                          f"{transient} render is {img_err[-1]} from the "
+                          f"single render")
+                check(torch.equal(out.radii, single.radii),
+                      f"{transient}: radii differ from the single render's")
+            got = read_launches()
+            check_launches(got, "per_sharded_step", N_POSES,
+                           f"{N_POSES} {transient} renders", backward=False)
+            total = {k: total[k] + got[k] for k in total}
+
+        # one warm-up and N_SHARD_STEPS timed steps from the phase-5 state
+        s, aux = step(state, cam, gt, ones, zeros, zeros, bg)
+        torch.cuda.synchronize()
+        reset_launches()
+        step_ms, step_losses = [], []
+        for _ in range(N_SHARD_STEPS):
+            t = time.perf_counter()
+            s, aux = step(s, cam, gt, ones, zeros, zeros, bg)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            step_losses.append(float(aux.loss))
+            check(int(aux.overflow) == 0, f"{transient} step overflow")
+        check(all(np.isfinite(step_losses)), f"non-finite loss {step_losses}")
+        check(float((s.gaussians.xyz - g.xyz).abs().max()) > 0,
+              f"{transient}: the parameters did not change")
+        # the step's loss and gradients on the phase-5 state
+        loss, _, _, bands, grads, _, tap = sharded.sharded_loss_grads(
+            g, state.exposure, cam, gt, ones, zeros, zeros, bg,
+            state.step + 1, n_shards=N_SHARDS, transient=transient,
+            **step_kw)
+        torch.cuda.synchronize()
+        got = read_launches()
+        check_launches(got, "per_sharded_step", N_SHARD_STEPS + 1,
+                       f"{N_SHARD_STEPS} {transient} steps and one gradient "
+                       f"call", never=never)
+        total = {k: total[k] + got[k] for k in total}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(abs(float(loss) - loss1) <= 1e-6 * abs(loss1) + 1e-7,
+              f"{transient} loss {float(loss)} vs single {loss1}")
+        check(torch.equal(bands.radii, radii1), f"{transient}: radii")
+        grads = dict(grads, tap=tap)
+        worst = hold_grads(transient, "the single render's", grads,
+                           dict(want, tap=want_tap), vis)
+        if replicated is None:
+            replicated = grads
+        else:
+            worst = max(worst, hold_grads(
+                transient, "the replicated transient's", grads, replicated,
+                vis))
+        print(f"sharded {transient}, {N_SHARDS} shards: frame ms "
+              f"{[round(x, 3) for x in frame_ms]} (median "
+              f"{np.median(frame_ms):.3f}), max |image - single| "
+              f"{max(img_err):.3e}; step ms {[round(x, 3) for x in step_ms]} "
+              f"(median {np.median(step_ms):.3f}), losses "
+              f"{[round(x, 6) for x in step_losses]}, loss on the phase-5 "
+              f"state {float(loss):.6f} (single {loss1:.6f}), worst "
+              f"gradient error {worst:.3e} of a field's largest gradient, "
+              f"launches in {N_SHARD_STEPS} steps and one gradient call "
+              f"{got}, peak memory {peak_gb:.2f} GB", flush=True)
+
+    profile_call("one sharded ring step", lambda: steps["ring"](
+        state, cam, gt, ones, zeros, zeros, bg), n_top=15)
+    return total
 
 
 def main():
@@ -929,6 +1238,11 @@ def main():
     for name, extra in slab_numbers.items():
         numbers.setdefault(name, {}).update(extra)
 
+    # ---- phase 3d: the blocked prefix sum, at one shard's rows of phase 7
+    scfg, m_loc, shard_pairs = sharded_setup(tg, [tcam] + cams, tcfg)
+    numbers["scan"] = check_scan(dev, check_rng,
+                                 -(-m_loc // SCAN_BLOCK) * SCAN_BLOCK)
+
     # ---- phase 4: the render path at full width, 5 poses
     with torch.no_grad():
         rasterize.render(g, cams[0], W, H, bg, cfg)       # warm-up
@@ -977,11 +1291,16 @@ def main():
     slab_launches, band_launches = slab_phase(state.gaussians, cams, tcam,
                                               tgt, tcfg, m_cap, pairs)
 
+    # ---- phase 7: gaussian-sharded storage at full width
+    sharded_launches = sharded_phase(state, cams, tcam, tgt, tcfg, scfg,
+                                     m_loc, shard_pairs)
+
     kernels = []
     for name, k in KERNELS.items():
         by_path = {"render": render_launches[name],
                    "train": train_launches[name],
-                   "slab": slab_launches[name], "band": band_launches[name]}
+                   "slab": slab_launches[name], "band": band_launches[name],
+                   "sharded": sharded_launches[name]}
         check(any(by_path.values()), f"{name} was launched on no path")
         n = numbers[name]
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"):
@@ -990,8 +1309,9 @@ def main():
             name=name, route="cuda",
             source=f"gsplat_tpu_torch/ops/kernels/csrc/{name}.cu",
             replaces=" + ".join(PALLAS + r for r in k["replaces"]),
-            launches=by_path["train"] or by_path["slab"],
-            launches_by_path=by_path, **n, library_ms=None))
+            launches=(by_path["train"] or by_path["slab"]
+                      or by_path["sharded"]),
+            launches_by_path=by_path, **{"library_ms": None, **n}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

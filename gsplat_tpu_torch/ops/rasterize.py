@@ -8,7 +8,10 @@ version under autograd; on the card it is the hand-written CUDA forward
 kernel, whose gradient is the CUDA backward kernel. The entry gather's
 gradient is ``index_add_``, which carries every entry row back to its
 gaussian's packed row; on the card it adds with atomics, in an order that
-varies from run to run.
+varies from run to run. The other form of that gradient, which
+gaussian-sharded storage uses (parallel/sharded.py), is the difference of
+two blocked prefix sums of the entry gradients in presort order
+(``masked_presort_prefix``, ``_prefix_between``; csrc/scan.cu on the card).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from gsplat_tpu_torch.ops import binning as binning_lib
 from gsplat_tpu_torch.ops import preprocess as preprocess_lib
 from gsplat_tpu_torch.ops.composite_ref import CompositeOut
 from gsplat_tpu_torch.ops.kernels.composite import composite_tiles
+from gsplat_tpu_torch.ops.kernels.scan import blocked_cumsum_16
 from gsplat_tpu_torch.utils.general import full_f32_matmul
 
 
@@ -60,6 +64,82 @@ def pack_entries(pre: preprocess_lib.Preprocessed) -> torch.Tensor:
     address."""
     cols = pack_rows(pre)
     return torch.cat([cols, cols.new_zeros((1, 16))], dim=0)
+
+
+PREFIX_BLOCK = 4096   # rows per block of the two-level prefix sums
+
+
+def _blocked_prefix(d_presort: torch.Tensor, m_cap: int):
+    """Two-level (blocked) prefix sums of the presort-ordered (m_cap,16)
+    gradient rows: inclusive sums restarting every 4096 rows (csrc/scan.cu
+    on the card) and the exclusive sums of the blocks' totals. A gaussian's
+    gradient is the difference of two prefix values (``_prefix_at``), so it
+    carries f32 error that grows with one block and the chain of blocks, not
+    with a running sum over millions of rows, whose size would swamp a
+    gaussian with few entries. Returns (intra, block_pre, L)."""
+    L = PREFIX_BLOCK
+    pad_rows = -(-m_cap // L) * L - m_cap
+    d_pad = torch.cat([d_presort, d_presort.new_zeros((pad_rows, 16))])
+    intra, block_tot = blocked_cumsum_16(d_pad, L)
+    block_pre = torch.cumsum(block_tot, dim=0) - block_tot
+    return intra, block_pre, L
+
+
+def _prefix_levels(intra: torch.Tensor, block_pre: torch.Tensor, L: int,
+                   bnd: torch.Tensor):
+    """The two levels of cs(j), the sum of the first j presort rows, at the
+    positions ``bnd`` (any int64 tensor): (the sum within j's block, the sum
+    of the blocks before it), each (..., 16) and 0 at j = 0."""
+    jm1 = torch.clamp(bnd - 1, min=0)
+    live = (bnd > 0)[..., None]
+    return (torch.where(live, intra[jm1], 0.0),
+            torch.where(live, block_pre[jm1 // L], 0.0))
+
+
+def _prefix_at(intra: torch.Tensor, block_pre: torch.Tensor, L: int,
+               bnd: torch.Tensor) -> torch.Tensor:
+    """cs(j) at the positions ``bnd``, from the blocked representation."""
+    within, before = _prefix_levels(intra, block_pre, L, bnd)
+    return within + before
+
+
+def _prefix_between(intra: torch.Tensor, block_pre: torch.Tensor, L: int,
+                    lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """cs(hi) − cs(lo), the sum of the presort rows [lo, hi), with the two
+    levels differenced apart. The JAX package subtracts two ``_prefix_at``
+    values, each rounded at the size of the running sum over all earlier
+    blocks; here a range that lies in one block (nearly all do) takes its
+    block term as an exact 0 and carries the rounding of one block only."""
+    within_hi, before_hi = _prefix_levels(intra, block_pre, L, hi)
+    within_lo, before_lo = _prefix_levels(intra, block_pre, L, lo)
+    return (within_hi - within_lo) + (before_hi - before_lo)
+
+
+def masked_presort_prefix(d_aligned: torch.Tensor, inv_src: torch.Tensor,
+                          total: torch.Tensor, m_cap: int):
+    """``_blocked_prefix`` of the gradient rows brought into presort order,
+    with the rows at and past ``total`` zeroed first. Those rows come from
+    dead ``inv_src`` slots, which point at rows of ``d_aligned`` no tile
+    owns; whatever lies there must reach neither a prefix nor the totals of
+    the block that holds ``total``."""
+    d_presort = d_aligned.index_select(0, inv_src)               # (m_cap,16)
+    live = torch.arange(m_cap, device=d_aligned.device) < total
+    return _blocked_prefix(torch.where(live[:, None], d_presort, 0.0), m_cap)
+
+
+def masked_presort_prefix_slabs(d_aligned: torch.Tensor,
+                                inv_src: torch.Tensor,
+                                slab_totals: torch.Tensor, m_slab: int,
+                                m_cap: int):
+    """``masked_presort_prefix`` for the slab-streamed presort layout
+    (ops/binning.py ``merge_slab_binning``): slab s owns presort rows
+    [s·m_slab, (s+1)·m_slab), of which only the first ``slab_totals[s]``
+    are real; every slab's dead tail is zeroed."""
+    d_presort = d_aligned.index_select(0, inv_src)               # (m_cap,16)
+    pos = torch.arange(m_cap, device=d_aligned.device)
+    s = pos // m_slab
+    live = (pos - s * m_slab) < slab_totals[s]
+    return _blocked_prefix(torch.where(live[:, None], d_presort, 0.0), m_cap)
 
 
 def composite_dispatch(entries, tile_start, tile_count,

@@ -3,12 +3,13 @@ and composited by itself at a fraction of the frame's pair capacity.
 Counterpart of gsplat_tpu/parallel/tile_shard.py ``render_tile_sharded``.
 
 The gaussians are shared by all bands (this axis scales pixels, not
-primitives). Each band shifts the projected means' y so that the standard
-binning runs on its own window of tile rows, gathers its entries (which
-keep their global means) and composites them with ``tile_id_base`` set to
-its first tile's id in the full grid, so that the pixel coordinates are the
-unshifted frame's. Tiles are independent, so the bands' images are exactly
-the single render's rows.
+primitives). Each band runs the standard binning on its own window of the
+frame's tile rows (``tile_row_base``; the JAX package shifts the projected
+means' y instead, which rounds differently within one ulp of a tile
+boundary), gathers its entries (which keep their global means) and
+composites them with ``tile_id_base`` set to its first tile's id in the
+full grid, so that the pixel coordinates are the frame's. Tiles are
+independent, so the bands' images are exactly the single render's rows.
 
 The bands run one after another on the device the gaussians lie on; where
 the JAX package all-gathers the bands' rows, ``gather_parts`` stacks the
@@ -67,14 +68,12 @@ def render_tile_sharded(gaussians: GaussianParams, cam: CameraView,
 
     rows, pairs, overflow = [], [], []
     for k in range(n_bands):
-        # the band's window of tile rows: shift y so that the standard
-        # binning runs on [0, rows_loc·th) at the band's capacity
-        shift = mean2d.new_tensor([0.0, float(k * rows_loc * th)])
+        # the band's window of tile rows, at the band's capacity
         b = binning_lib.bin_gaussians(
-            mean2d - shift, pre.depth.detach(), pre.radius.detach(),
+            mean2d, pre.depth.detach(), pre.radius.detach(),
             rx=pre.rx.detach(), ry=pre.ry.detach(), image_width=W,
             image_height=rows_loc * th, tile_h=th, tile_w=tw, m_cap=m_loc,
-            align=cfg.chunk)
+            align=cfg.chunk, tile_row_base=k * rows_loc)
         perm_ext = torch.cat([b.perm, b.perm.new_full((1,), cap)])
         entries = packed.index_select(0, perm_ext).index_select(
             0, b.gidx_sorted)

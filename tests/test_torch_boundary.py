@@ -42,11 +42,13 @@ def test_port_imports_no_jax_and_no_gsplat_tpu():
     for mod in ("gsplat_tpu_torch.ops.rasterize",
                 "gsplat_tpu_torch.ops.kernels.composite",
                 "gsplat_tpu_torch.ops.kernels.ssim",
+                "gsplat_tpu_torch.ops.kernels.scan",
                 "gsplat_tpu_torch.train.trainer",
                 "gsplat_tpu_torch.ops.naive",
                 "gsplat_tpu_torch.parallel",
                 "gsplat_tpu_torch.parallel.prim_shard",
                 "gsplat_tpu_torch.parallel.tile_shard",
+                "gsplat_tpu_torch.parallel.sharded",
                 "gsplat_tpu_torch.cli.render", "gsplat_tpu_torch.scene"):
         assert mod in res["modules"]
 

@@ -40,6 +40,8 @@ float __fadd_rn(float, float);
 float __fsub_rn(float, float);
 float __fdiv_rn(float, float);
 float __shfl_xor_sync(unsigned, float, int);
+float __shfl_up_sync(unsigned, float, unsigned, int);
+float __shfl_sync(unsigned, float, int, int);
 int __any_sync(unsigned, int);
 int __reduce_max_sync(unsigned, int);
 void __syncthreads();

@@ -10,7 +10,11 @@ version on the same inputs:
   and against the compositor kernel's cut-free t_final;
 - the compositor with ``t_init`` and ``tile_id_base`` and its backward from
   such a forward, at the compositor's gates; the depth-slab and tile-band
-  renders on the card against the same on the CPU.
+  renders on the card against the same on the CPU;
+- the blocked prefix sum: against a float64 cumsum no more than twice as far
+  as ``torch.cumsum`` in f32 is, exact on integers, the same bits on a
+  second launch; the sharded renders on the card against the same on the
+  CPU at the gradient gate.
 The render and one training step on the card are held to the same on the
 CPU; there the entry gather's gradient adds with atomics in an order that
 varies from run to run, which the gradient gate covers. These tests need
@@ -32,8 +36,9 @@ from gsplat_tpu_torch.ops import ssim as tssim
 from gsplat_tpu_torch.ops.composite_ref import (composite_tiles_plain,
                                                 slab_transmittance_plain)
 from gsplat_tpu_torch.ops.kernels import composite as tcomp
+from gsplat_tpu_torch.ops.kernels import scan as kscan
 from gsplat_tpu_torch.ops.kernels import ssim as kssim
-from gsplat_tpu_torch.parallel import prim_shard, tile_shard
+from gsplat_tpu_torch.parallel import prim_shard, sharded, tile_shard
 from gsplat_tpu_torch.train import trainer
 
 pytestmark = pytest.mark.cuda
@@ -286,6 +291,73 @@ def test_slab_and_band_renders_on_card_match_cpu(cuda_device):
             assert moved == (want_launches[name] if dev != "cpu"
                              else (0, 0, 0)), (name, moved)
             outs.append((img.detach().cpu(), inv.detach().cpu(),
+                         {k: v.grad.cpu() for k, v in params.items()}))
+        (img_c, inv_c, g_c), (img_g, inv_g, g_g) = outs
+        torch.testing.assert_close(img_g, img_c, **IMG_TOL)
+        torch.testing.assert_close(inv_g, inv_c, **IMG_TOL)
+        for k in gm.TRAINABLE_FIELDS:
+            torch.testing.assert_close(g_g[k], g_c[k], **GRAD_TOL)
+        assert float(g_g["xyz"].abs().max()) > 0
+
+
+@pytest.mark.parametrize("M,L", [(512, 64), (3000, 1000), (16384, 4096)])
+def test_scan_kernel_matches_plain(M, L, cuda_device):
+    """L = 1000 ends in a ragged tile of the kernel's 256-row walk."""
+    rng = np.random.default_rng(5)
+    x = torch.tensor(rng.standard_normal((M, 16)).astype(np.float32),
+                     device=cuda_device)
+    before = kscan.blocked_cumsum_16_cuda.launches
+    intra, tot = kscan.blocked_cumsum_16(x, L)       # CUDA: the kernel
+    torch.cuda.synchronize()
+    assert kscan.blocked_cumsum_16_cuda.launches == before + 1
+    plain, plain_tot = kscan.blocked_cumsum_16_plain(x, L)
+    ref = torch.cumsum(x.double().reshape(M // L, L, 16), dim=1).reshape(M,
+                                                                         16)
+    err = float((intra.double() - ref).abs().max())
+    plain_err = float((plain.double() - ref).abs().max())
+    assert err <= 2 * plain_err + 1e-6, (err, plain_err)
+    assert torch.equal(tot, intra[L - 1::L])
+    # sums of 4096 N(0,1) rows reach about 200: torch.cumsum itself is
+    # some 5e-4 from float64 there
+    torch.testing.assert_close(tot, plain_tot, rtol=1e-5, atol=1e-3)
+    again, tot2 = kscan.blocked_cumsum_16_cuda(x, L)
+    assert torch.equal(again, intra) and torch.equal(tot2, tot)
+    # integers: every partial sum below 2^24, so any order is exact
+    xi = torch.tensor(rng.integers(0, 2048, (M, 16)).astype(np.float32),
+                      device=cuda_device)
+    ki, kt = kscan.blocked_cumsum_16_cuda(xi, L)
+    pi, pt = kscan.blocked_cumsum_16_plain(xi, L)
+    assert torch.equal(ki, pi) and torch.equal(kt, pt)
+
+
+def test_sharded_renders_on_card_match_cpu(cuda_device):
+    """make_sharded_render on the card launches the compositor once per
+    shard forward and backward, the scan once per shard's backward for the
+    ring and slab transients and never for the replicated one, and gives
+    the CPU route's images and gradients."""
+    W, H = 96, 256
+    cfg = _cfg(32, 32, 64)
+    kernels = (tcomp.composite_fwd_cuda, tcomp.composite_bwd_cuda,
+               kscan.blocked_cumsum_16_cuda)
+    want_launches = {"replicated": (4, 4, 0), "ring": (4, 4, 4),
+                     "slab": (4, 4, 4)}
+    for transient, want in want_launches.items():
+        fn = sharded.make_sharded_render(4, image_width=W, image_height=H,
+                                         cfg=cfg, transient=transient)
+        outs = []
+        for dev in ("cpu", cuda_device):
+            g, cam = _scene(dev)
+            params = {k: getattr(g, k).clone().requires_grad_()
+                      for k in gm.TRAINABLE_FIELDS}
+            before = [k.launches for k in kernels]
+            out = fn(gm.with_trainables(g, params), cam,
+                     torch.full((3,), 0.25, device=dev))
+            assert int(out.overflow) == 0
+            (out.image.mean() + 0.1 * out.invdepth.mean()).backward()
+            moved = tuple(k.launches - b for k, b in zip(kernels, before))
+            assert moved == (want if dev != "cpu" else (0, 0, 0)), \
+                (transient, moved)
+            outs.append((out.image.detach().cpu(), out.invdepth.detach().cpu(),
                          {k: v.grad.cpu() for k, v in params.items()}))
         (img_c, inv_c, g_c), (img_g, inv_g, g_g) = outs
         torch.testing.assert_close(img_g, img_c, **IMG_TOL)
