@@ -8,11 +8,21 @@ Phases, each printing its own line:
 2. build: every CUDA kernel of the render and training paths, with nvcc,
    from this checkout, one nvcc per source, all started together;
 3. kernel vs plain: the compositor kernel against its plain PyTorch version
-   on the card, on the entries of the phase-4 frame; then a small render on
-   the card against the same render on the CPU;
+   on the card, on the entries of the phase-4 frame, with the tiles' entry
+   counts, the gate that the rectangle and warp mask the kernels stage for
+   every entry row equal the plain formula's and, on 16 tiles, the gate
+   that no pair passing the alpha test lies outside its cull rectangle
+   (the device's and the plain one) and the shares of evaluations, rows
+   and warps the rectangle keeps; the kernel's bound charges operations to
+   the contributing (entry, pixel) pairs, counted over the whole frame;
+   then a small render on
+   the card against the same render on the CPU, and the kernels' path for
+   tiles whose width is not 32 (8x128 and 16x16 tiles on the small frame,
+   forward and backward);
 3b. the training kernels against their plain versions on the card: the
    compositor backward (on 16 tiles of the phase-5 frame) against autograd
-   through the plain compositor, the SSIM map and its backward at
+   through the plain compositor, with the same rectangle gate and shares
+   on the training frame, the SSIM map and its backward at
    3x1920x1080 against the plain SSIM; each kernel timed by CUDA events;
 3c. the depth-slab and tile-band forms of the kernels against their plain
    versions, on the phase-5 frame's entries split into 4 depth slabs: the
@@ -70,11 +80,14 @@ from gsplat_tpu_torch.models import gaussian_model as gm
 from gsplat_tpu_torch.ops import binning as binning_lib
 from gsplat_tpu_torch.ops import knn, losses, rasterize
 from gsplat_tpu_torch.ops import ssim as ssim_lib
-from gsplat_tpu_torch.ops.composite_ref import (composite_tiles_plain,
+from gsplat_tpu_torch.ops.composite_ref import (_TileWalk,
+                                                composite_tiles_plain,
+                                                cull_rects_plain,
                                                 slab_transmittance_plain)
 from gsplat_tpu_torch.ops.kernels import build
 from gsplat_tpu_torch.ops.kernels.composite import (composite_bwd_cuda,
                                                     composite_fwd_cuda,
+                                                    cull_rects_cuda,
                                                     slab_transmittance_cuda)
 from gsplat_tpu_torch.ops.kernels.scan import (blocked_cumsum_16_cuda,
                                                blocked_cumsum_16_plain)
@@ -110,7 +123,9 @@ SCAN_BLOCK = rasterize.PREFIX_BLOCK   # rows per block of the prefix sums
 # published H100 SXM peaks (NVIDIA data sheet), for the bound
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-OPS_PER_EVAL = 21          # ~20 f32 operations + 1 exp per (pair, pixel)
+# per contributing (entry, pixel) pair; the compositor's bounds charge
+# nothing for a pair that does not contribute
+OPS_PER_EVAL = 21          # ~20 f32 operations + 1 exp
 OPS_PER_EVAL_BWD = 60      # the backward's ~59 f32 operations + 1 exp
 OPS_PER_EVAL_TMIT = 18     # the alpha alone (16 + 1 exp) and one product
 # f32 operations per pixel: SSIM map = 3 products + 5 blurs x 2 passes x
@@ -119,6 +134,7 @@ OPS_PER_EVAL_TMIT = 18     # the alpha alone (16 + 1 exp) and one product
 OPS_SSIM_FWD = 233
 OPS_SSIM_BWD = 233 + 20 + 130
 N_CHECK_TILES = 16         # tiles the compositor backward is checked on
+SMALL_W, SMALL_H, SMALL_N = 256, 128, 3000   # the small frame of phase 3
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -235,12 +251,28 @@ def bound(n_bytes, ops):
                 bound_by="operations" if o_ms >= b_ms else "bytes")
 
 
+def contributing_pairs(entries, tile_start, tile_count, n_contrib, geo):
+    """The (entry, pixel) pairs of a launch that contribute: below the
+    pixel's n_contrib and past the alpha test, counted over every tile with
+    the plain alpha. The work no compositor can avoid."""
+    walk = _TileWalk(entries, tile_start, tile_count,
+                     **{k: v for k, v in geo.items() if k != "t_eps"})
+    hits = 0
+    with torch.no_grad():
+        for j in range(walk.n_steps):
+            idx, rank, _, a1 = walk.step(j)
+            below = rank[None, :, None] < n_contrib[idx][:, None, :]
+            hits += int(((a1 > 0) & below).sum())
+    return hits
+
+
 def fwd_work(tile_count, n_contrib, has_t_init=False):
-    """What one compositor forward launch must do, as (rows, evals, bytes):
-    bytes = the entry rows in tile ranges (columns 0-9) + tile tables +
-    outputs (+ t_init); evals = the (pair, pixel) evaluations up to each
-    pixel's last contributor (a lower bound), OPS_PER_EVAL operations
-    each."""
+    """What one compositor forward launch moves and walks, as (rows, evals,
+    bytes): bytes = the entry rows in tile ranges (columns 0-9) + tile
+    tables + outputs (+ t_init); evals = the (entry, pixel) pairs up to each
+    pixel's last contributor, which a kernel that culls nothing evaluates.
+    The bound charges operations to the contributing pairs among them only
+    (``contributing_pairs``)."""
     T, P = n_contrib.shape
     rows = int(tile_count.long().sum())
     return (rows, int(n_contrib.long().sum()),
@@ -248,11 +280,10 @@ def fwd_work(tile_count, n_contrib, has_t_init=False):
 
 
 def bwd_work(n_rows, tile_count, n_contrib):
-    """What one compositor backward launch must do, as (rows, evals,
+    """What one compositor backward launch moves and walks, as (rows, evals,
     bytes): 40 B in for each entry row up to its tile's largest n_contrib +
     64 B out for every row of d_entries + tables + 28 B per pixel
-    (cotangents, t_final, n_contrib); evals as the forward's,
-    OPS_PER_EVAL_BWD operations each."""
+    (cotangents, t_final, n_contrib); evals as the forward's."""
     T, P = n_contrib.shape
     rows = int(torch.minimum(tile_count.long(),
                              n_contrib.long().amax(dim=1)).sum())
@@ -308,6 +339,95 @@ def pick_tiles(tile_count, rng):
     return tc
 
 
+def tile_lengths(label, tile_count):
+    """The tiles' entry counts: what one block per tile has to balance. The
+    264 longest are two blocks on each of an H100's 132 SMs."""
+    c = tile_count.long()
+    top = torch.topk(c, min(264, c.numel())).values
+    print(f"tile lengths ({label}): {c.numel()} tiles, {int((c > 0).sum())} "
+          f"non-empty, mean {float(c.float().mean()):.1f} entries, largest "
+          f"{int(c.max())}, the 264 longest hold {int(top.sum())} of "
+          f"{int(c.sum())} ({float(top.sum()) / max(int(c.sum()), 1):.3f})",
+          flush=True)
+
+
+def device_cull_rects(label, entries, tile_start, tile_count, geo):
+    """The rectangle and warp mask the kernels stage for every entry row of
+    the launch (``cull_rects_cuda``, the device's ``cull_rect``), held to the
+    plain formula (``cull_rects_plain``): equal on every row."""
+    kw = {k: v for k, v in geo.items()
+          if k not in ("chunk", "t_eps", "alpha_max")}
+    with torch.no_grad():
+        got = cull_rects_cuda(entries, tile_start, tile_count, **kw)
+        want = cull_rects_plain(entries, tile_start, tile_count, **kw)
+    differ = int((got != want).any(dim=1).sum())
+    owned = int((want[:, 0] != -2).sum())
+    check(owned == int(tile_count.long().sum()), "rows owned by a tile")
+    check(differ == 0, f"cull rectangle ({label}): the device's differs from "
+          f"the plain formula's on {differ} of {owned} rows")
+    print(f"cull rectangle ({label}): the device's rectangle and warp mask "
+          f"equal the plain formula's on all {owned} rows", flush=True)
+    return got
+
+
+def cull_stats(label, entries, tile_start, tc, n_contrib, geo, rects):
+    """What the cull rectangle does on the tiles ``tc`` keeps, against the
+    plain alpha test: the gate that no pair passing the test lies outside
+    its rectangle, by the device's own rectangles ``rects``
+    (``device_cull_rects``) and by the plain formula, and the shares that
+    size the kernels' design. Evaluations are the (entry, pixel) pairs below
+    the pixel's n_contrib; a row is 32 pixels of one tile row, a warp 4
+    consecutive rows (the kernels' layout) or rows 8 apart (the layout the
+    forward had)."""
+    walk = _TileWalk(entries, tile_start, tc,
+                     **{k: v for k, v in geo.items() if k != "t_eps"})
+    n = dict(evals=0, hits=0, inside=0, outside_live=0, entries=0, rows=0,
+             rows_live=0, warps=0, warps_spread=0, lanes=0)
+    with torch.no_grad():
+        for j in range(walk.n_steps):
+            idx, rank, data, a1 = walk.step(j)
+            live = a1 > 0
+            inside = walk.inside(idx, data)
+            valid = (rank[None, :] < walk.count[idx, None])[..., None]
+            below = rank[None, :, None] < n_contrib[idx][:, None, :]
+            r = rects[(walk.start[idx, None] + rank[None, :]).clamp(
+                max=rects.shape[0] - 1)].long()[..., None]    # (L,G,5,1)
+            on_device = ((walk.pxl >= r[:, :, 0]) & (walk.pxl <= r[:, :, 1])
+                         & (walk.pyl >= r[:, :, 2]) & (walk.pyl <= r[:, :, 3]))
+            n["outside_live"] += int((live & ~inside).sum())
+            n["outside_live"] += int((live & ~on_device).sum())
+            n["evals"] += int(below.sum())
+            n["hits"] += int((live & below).sum())
+            n["inside"] += int((inside & below).sum())
+            n["entries"] += int(valid.sum())
+            if walk.tile_w == 32 and walk.tile_h == 32:
+                L, G = inside.shape[:2]
+                rows = (inside & valid).view(L, G, 32, 32).any(-1)
+                n["rows"] += int(rows.sum())
+                n["lanes"] += int((inside & valid).sum())
+                n["rows_live"] += int(
+                    (inside & below).view(L, G, 32, 32).any(-1).sum())
+                n["warps"] += int(rows.view(L, G, 8, 4).any(-1).sum())
+                n["warps_spread"] += int(rows.view(L, G, 4, 8).any(-2).sum())
+    check(n["outside_live"] == 0, f"cull rectangle ({label}): "
+          f"{n['outside_live']} pairs that pass the alpha test lie outside it")
+    ent = max(n["entries"], 1)
+    line = (f"cull rectangle ({label}) on {N_CHECK_TILES} tiles, "
+            f"{n['entries']} entries: conservative (0 live pairs outside); "
+            f"of {n['evals']} evaluations below n_contrib "
+            f"{n['hits'] / max(n['evals'], 1):.3f} contribute and "
+            f"{n['inside'] / max(n['evals'], 1):.3f} lie inside")
+    if n["rows"]:
+        line += (f"; the rectangle keeps {n['rows'] / (ent * 32):.3f} of "
+                 f"(entry, row) pairs ({n['rows_live'] / (ent * 32):.3f} "
+                 f"with a pixel below n_contrib), "
+                 f"{n['lanes'] / (n['rows'] * 32):.3f} of a kept row's lanes, "
+                 f"{n['warps'] / (ent * 8):.3f} of (entry, warp) pairs with a "
+                 f"warp on 4 consecutive rows, {n['warps_spread'] / (ent * 8):.3f} "
+                 f"with its rows 8 apart")
+    print(line, flush=True)
+
+
 def bwd_vs_plain(label, entries, tile_start, tc, ga, gt, geo, fwd_kw,
                  t_init=None, tile_id_base=0):
     """composite_bwd (from composite_fwd's outputs on the same tables)
@@ -345,6 +465,41 @@ def bwd_vs_plain(label, entries, tile_start, tc, ga, gt, geo, fwd_kw,
     return err, sub_ms, plain_ms
 
 
+def check_general_tiles(g, cam, rng):
+    """The kernels' path for tiles whose width is not 32 (the rectangle
+    tested per pixel), on the card: a small frame on 8x128 and 16x16 tiles,
+    the forward against the plain compositor and the backward on 16 tiles
+    against autograd through it."""
+    for th, tw, chunk in ((8, 128, 16), (16, 16, 16)):
+        cfg = RasterizerConfig(tile_h=th, tile_w=tw, chunk=chunk,
+                               pairs_per_gaussian=24.0)
+        with torch.no_grad():
+            e = rasterize.build_entries(g, cam, SMALL_W, SMALL_H, cfg)
+        b = e.binning
+        check(int(b.overflow) == 0, f"overflow {int(b.overflow)}")
+        geo = dict(n_tiles_x=e.n_tiles_x, n_tiles_y=e.n_tiles_y, tile_h=th,
+                   tile_w=tw, alpha_min=cfg.alpha_min,
+                   alpha_max=cfg.alpha_max)
+        fwd_kw = dict(chunk=chunk, t_eps=cfg.transmittance_eps)
+        args = (e.entries, b.tile_start, b.tile_count)
+        kern, err, mismatch, _ = fwd_vs_plain(f"{th}x{tw} tiles", args,
+                                              dict(geo, **fwd_kw))
+        check(float((kern.n_contrib > 0).float().mean()) > 0.05,
+              f"{th}x{tw} tiles: a blank frame")
+        print(f"kernel vs plain: composite_fwd on {th}x{tw} tiles, "
+              f"{SMALL_W}x{SMALL_H}, {int(b.num_pairs)} pairs: max_abs_err "
+              f"{err:.3e}, n_contrib mismatch {mismatch:.2e}", flush=True)
+        T, P = e.n_tiles_x * e.n_tiles_y, th * tw
+        ga, gt = cotangents(rng, T, P, e.entries.device)
+        tc = pick_tiles(b.tile_count, rng)
+        bwd_vs_plain(f"{th}x{tw} tiles", e.entries, b.tile_start, tc, ga, gt,
+                     geo, fwd_kw)
+        rects = device_cull_rects(f"{th}x{tw} tiles", e.entries,
+                                  b.tile_start, b.tile_count, geo)
+        cull_stats(f"{th}x{tw} tiles", e.entries, b.tile_start, tc,
+                   kern.n_contrib, dict(geo, chunk=chunk), rects)
+
+
 def check_composite_bwd(g, cam, cfg, rng):
     """The compositor backward kernel against autograd through the plain
     compositor on the card, on 16 tiles of the training frame under
@@ -371,14 +526,23 @@ def check_composite_bwd(g, cam, cfg, rng):
         kern_ms = median_ms(lambda: composite_bwd_cuda(*args, **geo), 20)
     rows, evals, n_bytes = bwd_work(e.entries.shape[0], b.tile_count,
                                     full.n_contrib)
-    bnd = bound(n_bytes, evals * OPS_PER_EVAL_BWD)
-    err, _, plain_ms = bwd_vs_plain(
-        "training frame", e.entries, b.tile_start,
-        pick_tiles(b.tile_count, rng), ga, gt, geo, fwd_kw)
+    hits = contributing_pairs(e.entries, b.tile_start, b.tile_count,
+                              full.n_contrib, dict(geo, chunk=cfg.chunk))
+    bnd = bound(n_bytes, hits * OPS_PER_EVAL_BWD)
+    tc = pick_tiles(b.tile_count, rng)
+    err, _, plain_ms = bwd_vs_plain("training frame", e.entries, b.tile_start,
+                                    tc, ga, gt, geo, fwd_kw)
+    tile_lengths("training frame", b.tile_count)
+    rects = device_cull_rects("training frame", e.entries, b.tile_start,
+                              b.tile_count, geo)
+    cull_stats("training frame", e.entries, b.tile_start, tc, full.n_contrib,
+               dict(geo, chunk=cfg.chunk), rects)
     print(f"composite_bwd on the full frame: kernel {kern_ms:.3f} ms, entry "
           f"buffer {e.entries.shape[0]} rows, {int(b.num_pairs)} pairs, rows "
-          f"read {rows}, evals {evals}, bound {bnd['bound_ms']:.4f} ms "
-          f"({bnd['bound_by']})", flush=True)
+          f"read {rows}, contributing pairs {hits} of {evals} below "
+          f"n_contrib, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; "
+          f"{evals * OPS_PER_EVAL_BWD / F32_OPS_PER_S * 1e3:.4f} ms if every "
+          f"pair below n_contrib were charged)", flush=True)
     return dict(max_abs_err=err, ms=kern_ms, plain_ms=plain_ms, **bnd)
 
 
@@ -501,9 +665,11 @@ def check_slab_kernels(g, cam, cfg, rng):
             check(torch.allclose(got, want, **SLAB_TOL),
                   f"slab_tmit disagrees with its plain version (max "
                   f"{tmit_err})")
-            check(torch.allclose(got, cutfree, **SLAB_TOL),
-                  f"slab_tmit disagrees with the cut-free composite (max "
-                  f"{cut_err})")
+            # the unchanged slab_tmit.cu culls nothing: equal bits show that
+            # the compositor's cull rectangle dropped no pair on this frame
+            check(torch.equal(got, cutfree),
+                  f"slab_tmit is not the cut-free composite's t_final bit "
+                  f"for bit (max {cut_err})")
             tmit_ms.append(median_ms(
                 lambda: slab_transmittance_cuda(*args, **tmit_kw), 20))
             tmit_plain_ms.append(median_ms(
@@ -546,7 +712,7 @@ def check_slab_kernels(g, cam, cfg, rng):
           "slab 1 is not slab 0's transmittance")
     fwd_err, fwd_mis, fwd_ms, fwd_plain_ms = err, mismatch, [], []
     rows = evals = n_bytes = 0
-    slab_outs = []
+    slab_outs, slab_hits = [], []
     for k, args in enumerate(tabs):
         kw = dict(geo, **fwd_kw, t_init=t_arrive[k])
         kern, err, mismatch, plain_ms = fwd_vs_plain(f"slab {k}", args, kw)
@@ -559,16 +725,21 @@ def check_slab_kernels(g, cam, cfg, rng):
         rows, evals, n_bytes = (a + b for a, b in zip((rows, evals, n_bytes),
                                                       work))
         slab_outs.append(kern)
-    fwd_bnd = bound(n_bytes, evals * OPS_PER_EVAL)
+        slab_hits.append(contributing_pairs(*args, kern.n_contrib,
+                                            dict(geo, chunk=cfg.chunk)))
+    hits = sum(slab_hits)
+    fwd_bnd = bound(n_bytes, hits * OPS_PER_EVAL)
     print(f"kernel vs plain: composite_fwd with each slab's arriving "
           f"transmittance: max_abs_err {fwd_err:.3e}, n_contrib mismatch "
           f"{fwd_mis:.2e}; kernel ms per slab "
           f"{[round(x, 3) for x in fwd_ms]} (sum {sum(fwd_ms):.3f}), plain "
           f"ms per slab {[round(x, 1) for x in fwd_plain_ms]}; rows {rows}, "
-          f"evals {evals} (the single frame: "
-          f"{int(uncut.n_contrib.long().sum())}), bound of the {N_SLABS} "
-          f"launches {fwd_bnd['bound_ms']:.4f} ms ({fwd_bnd['bound_by']})",
-          flush=True)
+          f"contributing pairs {hits} of {evals} below n_contrib (the single "
+          f"frame: {int(uncut.n_contrib.long().sum())}), bound of the "
+          f"{N_SLABS} launches {fwd_bnd['bound_ms']:.4f} ms "
+          f"({fwd_bnd['bound_by']}; "
+          f"{evals * OPS_PER_EVAL / F32_OPS_PER_S * 1e3:.4f} ms if every pair "
+          f"below n_contrib were charged)", flush=True)
     numbers["composite_fwd"] = dict(
         t_init_max_abs_err=fwd_err, t_init_ms=sum(fwd_ms),
         t_init_plain_ms=sum(fwd_plain_ms),
@@ -606,7 +777,7 @@ def check_slab_kernels(g, cam, cfg, rng):
             work = bwd_work(args[0].shape[0], args[2], out.n_contrib)
             rows, evals, n_bytes = (a + b for a, b in zip(
                 (rows, evals, n_bytes), work))
-    bwd_bnd = bound(n_bytes, evals * OPS_PER_EVAL_BWD)
+    bwd_bnd = bound(n_bytes, hits * OPS_PER_EVAL_BWD)
     ent, ts, tc = tabs[1]
     err, _, plain_ms = bwd_vs_plain(
         "slab 1, its t_init forward, non-zero g_t", ent, ts,
@@ -618,8 +789,11 @@ def check_slab_kernels(g, cam, cfg, rng):
         t_init=t_arrive[1][base:], tile_id_base=base)
     print(f"composite_bwd on the {N_SLABS} slabs: kernel ms per slab "
           f"{[round(x, 3) for x in bwd_ms]} (sum {sum(bwd_ms):.3f}), rows "
-          f"read {rows}, evals {evals}, bound of the {N_SLABS} launches "
-          f"{bwd_bnd['bound_ms']:.4f} ms ({bwd_bnd['bound_by']})", flush=True)
+          f"read {rows}, contributing pairs {hits} of {evals} below "
+          f"n_contrib, bound of the {N_SLABS} launches "
+          f"{bwd_bnd['bound_ms']:.4f} ms ({bwd_bnd['bound_by']}; "
+          f"{evals * OPS_PER_EVAL_BWD / F32_OPS_PER_S * 1e3:.4f} ms if every "
+          f"pair below n_contrib were charged)", flush=True)
     numbers["composite_bwd"] = dict(
         t_init_max_abs_err=max(err, err2), t_init_ms=sum(bwd_ms),
         t_init_plain_ms=plain_ms, t_init_bound_ms=bwd_bnd["bound_ms"],
@@ -1206,24 +1380,36 @@ def main():
                                                      geo)
         kern_ms = median_ms(lambda: composite_fwd_cuda(*args, **geo), 20)
     n_rows, evals, n_bytes = fwd_work(b.tile_count, kern.n_contrib)
-    bnd = bound(n_bytes, evals * OPS_PER_EVAL)
+    hits = contributing_pairs(*args, kern.n_contrib, geo)
+    bnd = bound(n_bytes, hits * OPS_PER_EVAL)
     print(f"kernel vs plain: composite_fwd max_abs_err {err:.3e}, "
           f"n_contrib mismatch {mismatch:.2e}, kernel {kern_ms:.3f} ms, "
-          f"plain {plain_ms:.1f} ms, rows {n_rows}, evals {evals}, "
-          f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
+          f"plain {plain_ms:.1f} ms, rows {n_rows}, contributing pairs "
+          f"{hits} of {evals} below n_contrib, bound {bnd['bound_ms']:.4f} "
+          f"ms ({bnd['bound_by']}; "
+          f"{evals * OPS_PER_EVAL / F32_OPS_PER_S * 1e3:.4f} ms if every pair "
+          f"below n_contrib were charged)", flush=True)
+    tile_lengths("render frame", b.tile_count)
+    cull_stats("render frame", e.entries, b.tile_start,
+               pick_tiles(b.tile_count, np.random.default_rng(SEED + 2)),
+               kern.n_contrib, geo,
+               device_cull_rects("render frame", *args, geo))
     del kern, e, args
 
-    small = {k: v[:3000] for k, v in loaded.items()}
+    small = {k: v[:SMALL_N] for k, v in loaded.items()}
     with torch.no_grad():
         ref = rasterize.render(gm.from_numpy(small, device="cpu"),
-                               poses("cpu")[0], 256, 128, torch.zeros(3), cfg)
+                               poses("cpu")[0], SMALL_W, SMALL_H,
+                               torch.zeros(3), cfg)
         got = rasterize.render(gm.from_numpy(small, device=dev), cams[0],
-                               256, 128, bg, cfg)
+                               SMALL_W, SMALL_H, bg, cfg)
     small_err = float((got.image.cpu() - ref.image).abs().max())
     check(torch.allclose(got.image.cpu(), ref.image, **IMG_TOL),
           f"small render on the card vs the CPU: max {small_err}")
-    print(f"small render 256x128, 3000 gaussians: card vs CPU max_abs_err "
-          f"{small_err:.3e}", flush=True)
+    print(f"small render {SMALL_W}x{SMALL_H}, {SMALL_N} gaussians: card vs "
+          f"CPU max_abs_err {small_err:.3e}", flush=True)
+    check_general_tiles(gm.from_numpy(small, device=dev), cams[0],
+                        np.random.default_rng(SEED + 3))
     numbers = {"composite_fwd": dict(max_abs_err=err, ms=kern_ms,
                                      plain_ms=plain_ms, **bnd)}
 

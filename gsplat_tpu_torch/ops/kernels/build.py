@@ -5,7 +5,8 @@ into ``build/kernels/lib<name>-<hash>.so`` at the repository root (a
 directory git ignores), the hash covering the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source builds anew. Sources
 build only from this checkout, at first use; nothing is built when a module
-is imported.
+is imported. Every function takes ``csrc``, another copy of the sources (an
+older commit's, to time beside this one's); the wrappers use the checkout's.
 """
 from __future__ import annotations
 
@@ -34,14 +35,14 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
-        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    src = (csrc / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(csrc.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{h}.so"
 
 
-def build(names=KERNELS) -> dict:
+def build(names=KERNELS, csrc: Path = CSRC) -> dict:
     """Compile every named source that has no library yet, one nvcc each,
     all started together. Returns {name: (library path, seconds, ptxas
     report)}; raises with nvcc's output if any build fails."""
@@ -49,15 +50,16 @@ def build(names=KERNELS) -> dict:
     procs = {}
     t0 = time.perf_counter()
     for name in names:
-        out = library_path(name)
+        out = library_path(name, csrc)
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         procs[name] = (subprocess.Popen(
-            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out)
-    report = {name: (library_path(name), 0.0, "cached") for name in names}
+    report = {name: (library_path(name, csrc), 0.0, "cached")
+              for name in names}
     errors = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
@@ -72,7 +74,7 @@ def build(names=KERNELS) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
     """The kernel library, built first if needed."""
-    build((name,))
-    return ctypes.CDLL(str(library_path(name)))
+    build((name,), csrc)
+    return ctypes.CDLL(str(library_path(name, csrc)))

@@ -12,8 +12,10 @@ are the oracles the kernels are held to.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+from pathlib import Path
 from typing import Optional
 
 import torch
@@ -33,15 +35,39 @@ _ARGTYPES = {
     "slab_tmit": (_TABLES + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
                   + [_P] * 2),
 }
+_CULL_RECTS_ARGTYPES = (_TABLES + [ctypes.c_int] * 4 + [ctypes.c_float]
+                        + [ctypes.c_int] + [_P] * 2)
+
+
+_csrc = [build.CSRC]      # the sources the wrappers launch: the last one
+
+
+@contextlib.contextmanager
+def kernels_from(csrc):
+    """Inside the block the wrappers build and launch their kernels from
+    ``csrc``, another copy of the sources (an older commit's, to hold and
+    time beside this checkout's in one process)."""
+    _csrc.append(Path(csrc).resolve())
+    try:
+        yield
+    finally:
+        _csrc.pop()
+
+
+def _lib(name: str):
+    return _bound(name, _csrc[-1])
 
 
 @functools.lru_cache(maxsize=None)
-def _lib(name: str):
-    lib = build.load(name)
+def _bound(name: str, csrc: Path):
+    lib = build.load(name, csrc)
     fn = getattr(lib, f"gsplat_{name}")
     fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     getattr(lib, f"gsplat_{name}_max_pixels").restype = ctypes.c_int
+    if hasattr(lib, "gsplat_composite_cull_rects"):
+        lib.gsplat_composite_cull_rects.argtypes = _CULL_RECTS_ARGTYPES
+        lib.gsplat_composite_cull_rects.restype = ctypes.c_int
     return lib, fn
 
 
@@ -111,6 +137,35 @@ def composite_fwd_cuda(entries: torch.Tensor, tile_start: torch.Tensor,
 
 
 composite_fwd_cuda.launches = 0   # kernel launches since the last reset
+
+
+def cull_rects_cuda(entries: torch.Tensor, tile_start: torch.Tensor,
+                    tile_count: torch.Tensor, *, n_tiles_x: int,
+                    n_tiles_y: int, tile_h: int, tile_w: int,
+                    alpha_min: float, tile_id_base: int = 0) -> torch.Tensor:
+    """(M, 5) int32: the cull rectangle x0, x1, y0, y1 and the warp mask the
+    compositor's kernels stage for every entry row in a tile's range, -2 on
+    rows no tile owns; ``cull_rects_plain`` is its plain version. For the
+    tests and the smoke run: no render calls it, and it counts no launch."""
+    T = n_tiles_x * n_tiles_y
+    _check("composite_fwd", entries, (("tile_start", tile_start),
+                                      ("tile_count", tile_count)), T,
+           tile_h * tile_w)
+    dev = entries.device
+    entries = entries.detach().contiguous()
+    tile_start = tile_start.contiguous()
+    tile_count = tile_count.contiguous()
+    rects = torch.full((entries.shape[0], 5), -2, dtype=torch.int32,
+                       device=dev)
+    with torch.cuda.device(dev):
+        err = _lib("composite_fwd")[0].gsplat_composite_cull_rects(
+            entries.data_ptr(), entries.shape[0], tile_start.data_ptr(),
+            tile_count.data_ptr(), T, n_tiles_x, tile_h, tile_w, alpha_min,
+            tile_id_base, rects.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"cull_rects launch failed: cudaError_t {err}")
+    return rects
 
 
 def composite_bwd_cuda(entries: torch.Tensor, tile_start: torch.Tensor,

@@ -32,21 +32,43 @@
 // (1 - alpha_j) recovers each entry's transmittance to a few ulps, and S
 // is summed from the back, so no sum cancels.
 //
-// What bounds it on this card: each (entry, pixel) evaluation is about 60
-// f32 operations and one exp, and every entry's 10 sums over the tile's
-// pixels are a block-wide reduction. At 1080p the evaluations outweigh the
-// bytes (40 B in and 64 B out per entry row) ~30x: bound by operations.
+// What bounds it on this card: operations. Each kept (entry, pixel) pair is
+// ~60 f32 operations and an exp, every entry's sums over the tile's pixels
+// are a block-wide reduction, and as in the forward most pairs of a small
+// splat are misses: the time goes with the pairs evaluated, with what a
+// warp spends to learn that an entry has none for it, and with the
+// reduction per (warp, entry), not with the 40 B in and 64 B out per row.
 //
 // What the design does about it: one block per tile (tiles own disjoint
-// entry rows, so no atomics), 256 threads, 4 pixels each with T, S, n_contrib
-// and g_accum in registers; a warp's pixels are 4 rows of 32 (compact, so a
-// small splat touches few warps). Entries are staged through shared memory
-// in batches of 32, walked from the last to the first; per entry each
-// thread sums its 4 pixels, a warp with a live pixel reduces its 10 sums by
-// shuffles (a warp without one writes zeros), and after the batch the 8
-// warp partials are summed in a fixed order, so the result is
-// deterministic. power, exp and alpha use the forward's round-to-nearest
-// arithmetic, so every pixel keeps exactly the entries the forward kept.
+// entry rows, so no atomics), 8 warps, 4 pixels a thread with T, S,
+// n_contrib and g_accum in registers (layout in composite_alpha.cuh: with
+// tile_w == 32 a warp owns 4 whole tile rows, so a small splat meets few
+// warps). Entries are staged in batches of 64 with vector loads, walked
+// from the last to the first; the staging thread computes the entry's cull
+// rectangle (`cull_rect`) and the mask of warps whose rows it meets. A warp
+// turns 32 masks into one ballot and visits only entries that meet its rows
+// and rank below its largest n_contrib; with tile_w == 32 it skips a row
+// outside the rectangle's y range or past the row's largest n_contrib, and
+// lanes outside the x range idle. A hit costs one reciprocal of 1 - alpha
+// (for T_j and for S / (1 - alpha)) and adds to 11 per-thread moments:
+// sum dp {1, dx, dy, dx^2, dx dy, dy^2}, sum dL/dalpha ex, and the four
+// sum w g_accum[c]. Only a warp with a hit reduces: a halving exchange
+// (each step a lane keeps half of its values and adds its partner's: 8 + 4
+// + 2 + 1 + 1 = 16 shuffles for the 11 padded to 16) leaves each sum on one
+// lane pair, which stores it. After the batch one thread per entry adds the
+// partials of the warps that had a hit, in warp order, forms d_mean and
+// d_conic from the moments and writes the row with vector stores; the
+// result is deterministic. The entry rows are double-buffered so that this
+// runs beside the next batch's staging: two barriers per 64 entries.
+// Like the forward it is bound by instruction rate and latency, so
+// __launch_bounds__(256, 3) holds it to 80 registers, 3 blocks (24 warps)
+// an SM; 4 blocks at 64 registers spill and are no faster.
+// power, exp and alpha are the forward's (`eval_alpha`), and nothing that
+// is skipped could pass it, so every pixel keeps exactly the entries the
+// forward kept. Tensor cores are not used for the moments: their f32
+// accuracy gate (rtol 5e-3 / atol 1e-6 after the shift to the mean
+// cancels) rules out TF32, and a bf16 split of a 6-column product does not
+// beat plain FFMA.
 
 #include <cuda_runtime.h>
 
@@ -54,19 +76,41 @@
 
 namespace {
 
-constexpr int kThreads = 256;              // one block per tile
-constexpr int kWarps = kThreads / 32;
-constexpr int kPix = 4;                    // pixels per thread: P <= 1024
-constexpr int kBatch = 32;                 // entries staged at once
-constexpr int kCols = 10;                  // gradient columns written
+using gsplat::kPix;
+using gsplat::kWarps;
+constexpr int kThreads = 32 * kWarps;      // one block per tile
+constexpr int kBatch = 64;                 // entries staged at once
+constexpr int kSums = 11;                  // moments reduced per entry
+constexpr int kStride = 17;                // s_part row: 16 slots + 1 pad
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float warp_sum(float v) {
+// One step of the halving exchange: of 2 * kHalf values a lane keeps the
+// half its bit `2 * kHalf` of the lane index selects and adds its
+// partner's copy of the same half.
+template <int kHalf>
+__device__ __forceinline__ void halve(float (&v)[16], int lane) {
+  const bool up = lane & (2 * kHalf);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  for (int i = 0; i < kHalf; ++i) {
+    const float keep = up ? v[i + kHalf] : v[i];
+    const float give = up ? v[i] : v[i + kHalf];
+    v[i] = keep + __shfl_xor_sync(kFull, give, 2 * kHalf);
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Sum each of 16 per-lane values over the warp's 32 lanes with 8 + 4 + 2 +
+// 1 + 1 = 16 shuffles. Afterwards v[0] of lane l holds the total of slot
+// (l >> 1) & 15, on both lanes of the pair.
+__device__ __forceinline__ void warp_sum16(float (&v)[16], int lane) {
+  halve<8>(v, lane);
+  halve<4>(v, lane);
+  halve<2>(v, lane);
+  halve<1>(v, lane);
+  v[0] += __shfl_xor_sync(kFull, v[0], 1);
+}
+
+template <bool kRows32>
+__global__ void __launch_bounds__(kThreads, 3)
 composite_bwd_kernel(const float* __restrict__ entries, long long n_rows,
                      const int* __restrict__ tile_start,
                      const int* __restrict__ tile_count, int n_tiles_x,
@@ -76,9 +120,15 @@ composite_bwd_kernel(const float* __restrict__ entries, long long n_rows,
                      const float* __restrict__ g_accum,
                      const float* __restrict__ g_t, int tile_id_base,
                      float* __restrict__ d_entries) {
-  __shared__ float s_ent[kCols][kBatch];          // tile-local rows
-  __shared__ float s_part[kWarps][kBatch][kCols]; // per-warp sums
+  // entry rows, double-buffered by batch parity
+  __shared__ float4 s_geo[2][kBatch];   // mx-ox, my-oy, conic a, b
+  __shared__ float4 s_cut[2][kBatch];   // conic c, opacity, x0|x1<<16, y0|y1<<16
+  __shared__ float4 s_col[2][kBatch];   // rgb, invdepth
+  __shared__ int s_mask[kBatch];        // warps whose rows the rectangle meets
+  __shared__ float s_part[kWarps][kBatch][kStride];   // per-warp sums
+  __shared__ unsigned s_hit[kWarps][kBatch / 32];     // entries a warp hit
   __shared__ int s_max[kWarps];
+  __shared__ int s_wy0[kWarps], s_wy1[kWarps];
 
   const int t = blockIdx.x;
   const int P = tile_h * tile_w;
@@ -87,16 +137,22 @@ composite_bwd_kernel(const float* __restrict__ entries, long long n_rows,
   const long long count = gsplat::clamp_count(start, tile_count[t], n_rows);
   float ox, oy;
   gsplat::tile_origin(t, tile_id_base, n_tiles_x, tile_h, tile_w, &ox, &oy);
+  if (threadIdx.x < kWarps)
+    gsplat::warp_rows(threadIdx.x, P, tile_w, &s_wy0[threadIdx.x],
+                      &s_wy1[threadIdx.x]);
 
   float px[kPix], py[kPix], T[kPix], S[kPix], ga[kPix][4];
-  int nc[kPix];
-  int my_max = 0;
+  int ix[kPix], iy[kPix], nc[kPix];
+  int slot_max[kPix];                   // largest n_contrib of the warp's slot
+  int warp_max = 0;
 #pragma unroll
   for (int k = 0; k < kPix; ++k) {
-    const int p = warp * (32 * kPix) + k * 32 + lane;
+    const int p = warp * gsplat::kWarpPix + k * 32 + lane;
     const long long o = static_cast<long long>(t) * P + p;
-    px[k] = static_cast<float>(p % tile_w);
-    py[k] = static_cast<float>(p / tile_w);
+    ix[k] = p % tile_w;
+    iy[k] = p / tile_w;
+    px[k] = static_cast<float>(ix[k]);
+    py[k] = static_cast<float>(iy[k]);
     nc[k] = 0;
     T[k] = 1.f;
     S[k] = 0.f;
@@ -110,87 +166,127 @@ composite_bwd_kernel(const float* __restrict__ entries, long long n_rows,
       for (int c = 0; c < 4; ++c)
         ga[k][c] = g_accum[(static_cast<long long>(t) * 4 + c) * P + p];
     }
-    my_max = max(my_max, nc[k]);
+    slot_max[k] = __reduce_max_sync(kFull, nc[k]);
+    warp_max = max(warp_max, slot_max[k]);
   }
-  my_max = __reduce_max_sync(0xffffffffu, my_max);
-  if (lane == 0) s_max[warp] = my_max;
+  if (lane == 0) s_max[warp] = warp_max;
   __syncthreads();
   int tile_max = 0;
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) tile_max = max(tile_max, s_max[w]);
   const long long last = tile_max < count ? tile_max : count;
 
-  for (long long j1 = last; j1 > 0; j1 -= kBatch) {
+  int buf = 0;
+  for (long long j1 = last; j1 > 0; j1 -= kBatch, buf ^= 1) {
     const long long j0 = j1 > kBatch ? j1 - kBatch : 0;
     const int n = static_cast<int>(j1 - j0);
     if (threadIdx.x < n) {
-      const float* row = entries + (start + j0 + threadIdx.x) * 16;
       const int i = threadIdx.x;
-      s_ent[0][i] = row[0] - ox;
-      s_ent[1][i] = row[1] - oy;
+      const gsplat::Staged e = gsplat::stage_entry(
+          entries + (start + j0 + i) * 16, ox, oy, alpha_min, tile_h, tile_w,
+          s_wy0, s_wy1);
+      s_geo[buf][i] = e.geo;
+      s_cut[buf][i] = e.cut;
+      s_col[buf][i] = e.col;
+      s_mask[i] = e.mask;
+    }
+    // also keeps the previous batch's readers of s_part, s_hit and s_mask
+    // ahead of this batch's writers
+    __syncthreads();
+
+    for (int g = (n - 1) / 32; g >= 0; --g) {
+      const int g0 = g * 32;
+      const int jl = g0 + lane;
+      const int m = jl < n && static_cast<int>(j0) + jl < warp_max
+                        ? s_mask[jl] : 0;
+      unsigned todo = __ballot_sync(kFull, (m >> warp) & 1);
+      unsigned hits = 0;
+      while (todo) {
+        const int b = 31 - __clz(todo);           // back to front
+        todo &= ~(1u << b);
+        const int jj = g0 + b;
+        const int rank = static_cast<int>(j0) + jj;
+        const float4 geo = s_geo[buf][jj];
+        const float4 cut = s_cut[buf][jj];
+        const float ca = geo.z, cb = geo.w, cc = cut.x, op = cut.y;
+        const gsplat::Rect r = gsplat::staged_rect(cut);
+        float v[16];
 #pragma unroll
-      for (int c = 2; c < kCols; ++c) s_ent[c][i] = row[c];
+        for (int c = 0; c < 16; ++c) v[c] = 0.f;
+        bool live = false;
+#pragma unroll
+        for (int k = 0; k < kPix; ++k) {
+          if (kRows32) {                // slot k is tile row 4 * warp + k
+            const int row = warp * kPix + k;
+            if (rank >= slot_max[k] || row < r.y0 || row > r.y1) continue;
+            if (lane < r.x0 || lane > r.x1) continue;
+          } else if (ix[k] < r.x0 || ix[k] > r.x1 || iy[k] < r.y0 ||
+                     iy[k] > r.y1) {
+            continue;
+          }
+          if (rank >= nc[k]) continue;
+          // the forward's alpha, rounded the same way (composite_alpha.cuh)
+          gsplat::Alpha a;
+          if (!gsplat::eval_alpha(px[k], py[k], geo.x, geo.y, ca, cb, cc, op,
+                                  alpha_min, alpha_max, &a))
+            continue;
+          live = true;
+          const float4 col = s_col[buf][jj];
+          const float inv = __frcp_rn(__fsub_rn(1.f, a.alpha));
+          const float tj = T[k] * inv;                // T before this entry
+          const float w = a.alpha * tj;
+          const float gc = col.x * ga[k][0] + col.y * ga[k][1]
+                           + col.z * ga[k][2] + col.w * ga[k][3];
+          const float dl_da = gc * tj - S[k] * inv;
+          S[k] += w * gc;
+          T[k] = tj;
+          const float dp = dl_da * a.a_raw;           // straight through
+          const float dpx = dp * a.dx, dpy = dp * a.dy;
+          v[0] += dp;
+          v[1] += dpx;
+          v[2] += dpy;
+          v[3] += dpx * a.dx;
+          v[4] += dpx * a.dy;
+          v[5] += dpy * a.dy;
+          v[6] += dl_da * a.ex;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) v[7 + c] += w * ga[k][c];
+        }
+        if (!__any_sync(kFull, live)) continue;
+        hits |= 1u << b;
+        warp_sum16(v, lane);
+        const int slot = (lane >> 1) & 15;
+        if (!(lane & 1) && slot < kSums) s_part[warp][jj][slot] = v[0];
+      }
+      if (lane == 0) s_hit[warp][g] = hits;
     }
     __syncthreads();
 
-    for (int jj = n - 1; jj >= 0; --jj) {
-      const int rank = static_cast<int>(j0) + jj;
-      const float mx = s_ent[0][jj], my = s_ent[1][jj];
-      const float ca = s_ent[2][jj], cb = s_ent[3][jj], cc = s_ent[4][jj];
-      const float op = s_ent[5][jj];
-      float sum[kCols];
+    if (threadIdx.x < n) {
+      const int jj = threadIdx.x;
+      const unsigned bit = 1u << (jj % 32);
+      float m[kSums];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) sum[c] = 0.f;
-      bool live = false;
+      for (int c = 0; c < kSums; ++c) m[c] = 0.f;
+      bool any = false;
 #pragma unroll
-      for (int k = 0; k < kPix; ++k) {
-        if (rank >= nc[k]) continue;
-        // the forward's alpha, rounded the same way (composite_alpha.cuh)
-        gsplat::Alpha a;
-        if (!gsplat::eval_alpha(px[k], py[k], mx, my, ca, cb, cc, op,
-                                alpha_min, alpha_max, &a))
-          continue;
-        const float dx = a.dx, dy = a.dy, ex = a.ex, a_raw = a.a_raw;
-        const float alpha = a.alpha;
-        live = true;
-        const float one_m = __fsub_rn(1.f, alpha);
-        const float tj = __fdiv_rn(T[k], one_m);     // T before this entry
-        const float w = alpha * tj;
-        const float gc = s_ent[6][jj] * ga[k][0] + s_ent[7][jj] * ga[k][1]
-                         + s_ent[8][jj] * ga[k][2] + s_ent[9][jj] * ga[k][3];
-        const float dl_da = gc * tj - S[k] / one_m;
-        S[k] += w * gc;
-        T[k] = tj;
-        const float dp = dl_da * a_raw;               // straight through
-        sum[0] += dp * (ca * dx + cb * dy);
-        sum[1] += dp * (cc * dy + cb * dx);
-        sum[2] += -0.5f * dp * dx * dx;
-        sum[3] += -dp * dx * dy;
-        sum[4] += -0.5f * dp * dy * dy;
-        sum[5] += dl_da * ex;
+      for (int w = 0; w < kWarps; ++w) {
+        if (!(s_hit[w][jj / 32] & bit)) continue;
+        any = true;
 #pragma unroll
-        for (int c = 0; c < 4; ++c) sum[6 + c] += w * ga[k][c];
+        for (int c = 0; c < kSums; ++c) m[c] += s_part[w][jj][c];
       }
-      if (__any_sync(0xffffffffu, live)) {
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) sum[c] = warp_sum(sum[c]);
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) s_part[warp][jj][c] = sum[c];
+      if (any) {                        // other rows stay as the caller's 0
+        const float4 geo = s_geo[buf][jj];
+        const float ca = geo.z, cb = geo.w, cc = s_cut[buf][jj].x;
+        float4* out = reinterpret_cast<float4*>(
+            d_entries + (start + j0 + jj) * 16);
+        out[0] = make_float4(ca * m[1] + cb * m[2], cc * m[2] + cb * m[1],
+                             -0.5f * m[3], -m[4]);
+        out[1] = make_float4(-0.5f * m[5], m[6], m[7], m[8]);
+        *reinterpret_cast<float2*>(out + 2) = make_float2(m[9], m[10]);
       }
     }
-    __syncthreads();
-
-    for (int i = threadIdx.x; i < n * kCols; i += kThreads) {
-      const int jj = i / kCols, c = i % kCols;
-      float v = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) v += s_part[w][jj][c];
-      d_entries[(start + j0 + jj) * 16 + c] = v;
-    }
-    // the next batch's staging overwrites s_ent only; its compute phase
-    // writes s_part after the barrier that follows the staging
   }
 }
 
@@ -217,11 +313,18 @@ int gsplat_composite_bwd(const float* entries, long long n_rows,
   if (n_tiles <= 0) return 0;
   if (tile_h * tile_w > kThreads * kPix || n_tiles_x <= 0 || tile_id_base < 0)
     return cudaErrorInvalidValue;
-  composite_bwd_kernel<<<n_tiles, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      entries, n_rows, tile_start, tile_count, n_tiles_x, tile_h, tile_w,
-      alpha_min, alpha_max, t_final, n_contrib, g_accum, g_t, tile_id_base,
-      d_entries);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tile_w == 32) {
+    composite_bwd_kernel<true><<<n_tiles, kThreads, 0, s>>>(
+        entries, n_rows, tile_start, tile_count, n_tiles_x, tile_h, tile_w,
+        alpha_min, alpha_max, t_final, n_contrib, g_accum, g_t, tile_id_base,
+        d_entries);
+  } else {
+    composite_bwd_kernel<false><<<n_tiles, kThreads, 0, s>>>(
+        entries, n_rows, tile_start, tile_count, n_tiles_x, tile_h, tile_w,
+        alpha_min, alpha_max, t_final, n_contrib, g_accum, g_t, tile_id_base,
+        d_entries);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

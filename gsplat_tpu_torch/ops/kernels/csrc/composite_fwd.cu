@@ -20,29 +20,49 @@
 // alpha)), and is 1 where the pointer is null. Tile t of the launch lies
 // where tile `tile_id_base + t` of the full grid lies (tile bands).
 //
-// What bounds it on this card: each (pair, pixel) evaluation is about 20
-// f32 operations and one exp. At 67 TFLOP/s f32 that is ~0.3 ns per
-// thousand evaluations, against ~64 B per entry row read once at 3.35 TB/s:
-// with 1024 pixels per 32x32 tile the operations outweigh the bytes ~17x,
-// so the kernel is bound by operations, and by how many evaluations it does
-// past the point where every pixel of a tile has terminated.
+// What bounds it on this card: operations. An entry row is 40 B read once
+// per tile against up to 1024 (entry, pixel) evaluations of ~30
+// operations and an exp each, and most of those evaluations are misses:
+// a splat a few pixels wide touches a minority of a 32x32 tile's pixels.
+// So the time goes with the evaluations the kernel cannot avoid and with
+// what it spends per (warp, entry) to find that there are none.
 //
-// What the design does about it: one block per tile, 256 threads, each
-// thread owning 4 pixels whose state (T, accum, last) lives in registers.
-// The tile's entries are staged through shared memory in batches of 256
-// (one row per thread, only columns 0-9, with the tile origin subtracted
-// once per entry), and every thread reads each staged entry as a broadcast.
+// What the design does about it: one block per tile, 8 warps, 4 pixels a
+// thread with T, accum and the last contributor in registers (layout in
+// composite_alpha.cuh: with tile_w == 32 a warp owns 4 whole tile rows).
+// Entries are staged through shared memory in batches of 256, one row per
+// thread; the staging thread also computes the entry's cull rectangle
+// (`cull_rect`: outside it eval_alpha rejects every pixel), the mask of
+// warps whose rows it meets, and the entry's chunk index. A warp turns 32
+// masks into one ballot and visits only the entries that meet its rows, in
+// order; with tile_w == 32 it then skips each of its 4 rows that lies
+// outside the rectangle's y range, and lanes outside the x range idle (a
+// row whose 32 pixels are all done falls through on its `done` flags alike:
+// a vote to skip it sooner bought nothing); other tile shapes test the
+// rectangle per pixel. Nothing that is skipped could have
+// contributed, so the result has the bits of a kernel without culling.
 // Before each batch the block counts its finished threads
-// (__syncthreads_count) and leaves as soon as all pixels are done, which is
-// the CUDA form of the TPU kernel's whole-tile early out. Transmittance is
-// kept as (T at the start of the G-entry chunk) x (product within the
+// (__syncthreads_count) and leaves once all pixels are done. Transmittance
+// is kept as (T at the start of the G-entry chunk) x (product within the
 // chunk), with round-to-nearest intrinsics and exact f32 `expf` (no
 // fast-math, no FMA contraction), so it rounds as the plain version's
 // per-chunk cumprod does and the early-termination test stops every pixel
-// at the same entry. `t_init` is read once per pixel into a register, and
-// whether there is one is a template parameter, so the kernel without it is
-// the code it was before it took one. Tensor cores, TMA and warp
-// specialisation are later work.
+// at the same entry. The fold t0 *= tp, tp = 1 at a chunk's start is exact
+// where tp == 1, so a warp folds when the first entry it visits lies in a
+// new chunk (a staged index, no division per thread) and the products that
+// happen are the same in the same order. `t_init` is read once per pixel
+// into a register, and whether there is one is a template parameter.
+// The kernel is bound by instruction rate and latency (exp, shared-memory
+// broadcasts), so warps in flight count: __launch_bounds__(256, 4) holds it
+// to 64 registers, 4 blocks (32 warps) an SM, at the price of a few spilled
+// words. Tiles are handed out in index order: longest first (an order
+// array from a device-side rank of tile_count in the same call) took 3% off
+// this kernel on the 1080p frame and gave it back on shorter launches.
+// Not used, and why: the entry rows are 32 MB per 1080p frame, 0.01 ms of
+// memory time, behind one barrier per 256 entries, so TMA or cp.async
+// rings have nothing to hide; the evaluation is a 6-column quadratic form
+// per pixel in f32 whose shift to the mean cancels, which rules out TF32
+// and leaves a bf16 split on the tensor cores slower than plain FFMA.
 
 #include <cuda_runtime.h>
 
@@ -50,12 +70,14 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // threads per block (one block per tile)
-constexpr int kPix = 4;         // pixels per thread: tiles up to 1024 px
-constexpr int kBatch = 256;     // entries staged in shared memory at once
+using gsplat::kPix;
+using gsplat::kWarps;
+constexpr int kThreads = 32 * kWarps;   // one block per tile
+constexpr int kBatch = 256;             // entries staged in shared memory
+constexpr unsigned kFull = 0xffffffffu;
 
-template <bool kHasTInit>
-__global__ void __launch_bounds__(kThreads)
+template <bool kHasTInit, bool kRows32>
+__global__ void __launch_bounds__(kThreads, 4)
 composite_fwd_kernel(const float* __restrict__ entries, long long n_rows,
                      const int* __restrict__ tile_start,
                      const int* __restrict__ tile_count, int n_tiles_x,
@@ -64,29 +86,40 @@ composite_fwd_kernel(const float* __restrict__ entries, long long n_rows,
                      const float* __restrict__ t_init, int tile_id_base,
                      float* __restrict__ accum,
                      float* __restrict__ t_final, int* __restrict__ n_contrib) {
-  __shared__ float s_geo[6][kBatch];   // mx-ox, my-oy, conic a, b, c, opacity
-  __shared__ float s_col[4][kBatch];   // rgb, invdepth
+  __shared__ float4 s_geo[kBatch];   // mx-ox, my-oy, conic a, b
+  __shared__ float4 s_cut[kBatch];   // conic c, opacity, x0 | x1<<16, y0 | y1<<16
+  __shared__ float4 s_col[kBatch];   // rgb, invdepth
+  __shared__ int s_mask[kBatch];     // warps whose rows the rectangle meets
+  __shared__ int s_cid[kBatch];      // chunk index of the entry
+  __shared__ int s_wy0[kWarps], s_wy1[kWarps];
 
   const int t = blockIdx.x;
   const int P = tile_h * tile_w;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long long start = tile_start[t];
   const long long count = gsplat::clamp_count(start, tile_count[t], n_rows);
   float ox, oy;
   gsplat::tile_origin(t, tile_id_base, n_tiles_x, tile_h, tile_w, &ox, &oy);
+  if (threadIdx.x < kWarps)
+    gsplat::warp_rows(threadIdx.x, P, tile_w, &s_wy0[threadIdx.x],
+                      &s_wy1[threadIdx.x]);
 
   // Per pixel: t0 = transmittance at the start of the current G-entry
   // chunk, tp = product of (1 - alpha) of this chunk's contributors so far.
   // T = t0 * tp, associated as the plain version's per-chunk cumprod.
   float px[kPix], py[kPix], t0[kPix], tp[kPix], acc[kPix][4];
   float ti[kPix];                       // t_init of the pixel; unused without
+  int ix[kPix], iy[kPix];
   int last[kPix];
   bool done[kPix];
 #pragma unroll
   for (int k = 0; k < kPix; ++k) {
-    const int p = threadIdx.x + k * kThreads;
+    const int p = warp * gsplat::kWarpPix + k * 32 + lane;
     done[k] = p >= P;
-    px[k] = static_cast<float>(p % tile_w);
-    py[k] = static_cast<float>(p / tile_w);
+    ix[k] = p % tile_w;
+    iy[k] = p / tile_w;
+    px[k] = static_cast<float>(ix[k]);
+    py[k] = static_cast<float>(iy[k]);
     t0[k] = 1.f;
     tp[k] = 1.f;
     acc[k][0] = acc[k][1] = acc[k][2] = acc[k][3] = 0.f;
@@ -94,76 +127,89 @@ composite_fwd_kernel(const float* __restrict__ entries, long long n_rows,
     ti[k] = 1.f;
     if (kHasTInit && p < P) ti[k] = t_init[static_cast<long long>(t) * P + p];
   }
+  int cur = -1;                         // chunk the products in tp belong to
 
   for (long long b0 = 0; b0 < count; b0 += kBatch) {
     bool mine_done = true;
 #pragma unroll
     for (int k = 0; k < kPix; ++k) mine_done = mine_done && done[k];
     // also the barrier that keeps the previous batch's readers ahead of
-    // this batch's writers
+    // this batch's writers (and s_wy0 / s_wy1 ahead of their first reader)
     if (__syncthreads_count(mine_done) == kThreads) break;
 
     const int n = static_cast<int>(count - b0 < kBatch ? count - b0 : kBatch);
     if (threadIdx.x < n) {
-      const float4* row = reinterpret_cast<const float4*>(
-          entries + (start + b0 + threadIdx.x) * 16);
-      const float4 r0 = row[0];
-      const float4 r1 = row[1];
-      const float2 r2 = *reinterpret_cast<const float2*>(row + 2);
       const int i = threadIdx.x;
-      s_geo[0][i] = r0.x - ox;
-      s_geo[1][i] = r0.y - oy;
-      s_geo[2][i] = r0.z;
-      s_geo[3][i] = r0.w;
-      s_geo[4][i] = r1.x;
-      s_geo[5][i] = r1.y;
-      s_col[0][i] = r1.z;
-      s_col[1][i] = r1.w;
-      s_col[2][i] = r2.x;
-      s_col[3][i] = r2.y;
+      const gsplat::Staged e = gsplat::stage_entry(
+          entries + (start + b0 + i) * 16, ox, oy, alpha_min, tile_h, tile_w,
+          s_wy0, s_wy1);
+      s_geo[i] = e.geo;
+      s_cut[i] = e.cut;
+      s_col[i] = e.col;
+      s_mask[i] = e.mask;
+      s_cid[i] = static_cast<int>((b0 + i) / chunk);
     }
     __syncthreads();
 
-    for (int j = 0; j < n; ++j) {
-      if ((b0 + j) % chunk == 0) {      // a new chunk: fold its product in
+    for (int g0 = 0; g0 < n; g0 += 32) {
+      const int m = g0 + lane < n ? s_mask[g0 + lane] : 0;
+      unsigned todo = __ballot_sync(kFull, (m >> warp) & 1);
+      while (todo) {
+        const int j = g0 + __ffs(todo) - 1;
+        todo &= todo - 1;
+        const int cid = s_cid[j];
+        if (cid != cur) {               // a new chunk: fold its product in
+          cur = cid;
+#pragma unroll
+          for (int k = 0; k < kPix; ++k) {
+            t0[k] = __fmul_rn(t0[k], tp[k]);
+            tp[k] = 1.f;
+          }
+        }
+        const float4 geo = s_geo[j];
+        const float4 cut = s_cut[j];
+        const gsplat::Rect r = gsplat::staged_rect(cut);
 #pragma unroll
         for (int k = 0; k < kPix; ++k) {
-          t0[k] = __fmul_rn(t0[k], tp[k]);
-          tp[k] = 1.f;
+          if (kRows32) {                // slot k is tile row 4 * warp + k
+            const int row = warp * kPix + k;
+            if (row < r.y0 || row > r.y1) continue;
+            if (lane < r.x0 || lane > r.x1) continue;
+          } else if (ix[k] < r.x0 || ix[k] > r.x1 || iy[k] < r.y0 ||
+                     iy[k] > r.y1) {
+            continue;
+          }
+          if (done[k]) continue;
+          gsplat::Alpha a;
+          if (!gsplat::eval_alpha(px[k], py[k], geo.x, geo.y, geo.z, geo.w,
+                                  cut.x, cut.y, alpha_min, alpha_max, &a))
+            continue;
+          // round-to-nearest products, so the early-termination test sees the
+          // transmittance the plain version's sees
+          const float one_m = __fsub_rn(1.f, a.alpha);
+          const float t_excl = __fmul_rn(t0[k], tp[k]);
+          float test_t = __fmul_rn(t_excl, one_m);
+          if (kHasTInit) test_t = __fmul_rn(ti[k], test_t);
+          if (test_t < t_eps) {        // tested before committing:
+            done[k] = true;            // no contribution
+            continue;
+          }
+          const float w = __fmul_rn(t_excl, a.alpha);
+          const float4 col = s_col[j];
+          acc[k][0] += w * col.x;
+          acc[k][1] += w * col.y;
+          acc[k][2] += w * col.z;
+          acc[k][3] += w * col.w;
+          tp[k] = __fmul_rn(tp[k], one_m);
+          last[k] = static_cast<int>(b0) + j + 1;
         }
-      }
-      const float mx = s_geo[0][j], my = s_geo[1][j];
-      const float ca = s_geo[2][j], cb = s_geo[3][j], cc = s_geo[4][j];
-      const float op = s_geo[5][j];
-#pragma unroll
-      for (int k = 0; k < kPix; ++k) {
-        if (done[k]) continue;
-        gsplat::Alpha a;
-        if (!gsplat::eval_alpha(px[k], py[k], mx, my, ca, cb, cc, op,
-                                alpha_min, alpha_max, &a))
-          continue;
-        // round-to-nearest products, so the early-termination test sees the
-        // transmittance the plain version's sees
-        const float one_m = __fsub_rn(1.f, a.alpha);
-        const float t_excl = __fmul_rn(t0[k], tp[k]);
-        float test_t = __fmul_rn(t_excl, one_m);
-        if (kHasTInit) test_t = __fmul_rn(ti[k], test_t);
-        if (test_t < t_eps) {        // tested before committing:
-          done[k] = true;            // no contribution
-          continue;
-        }
-        const float w = __fmul_rn(t_excl, a.alpha);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[k][c] += w * s_col[c][j];
-        tp[k] = __fmul_rn(tp[k], one_m);
-        last[k] = static_cast<int>(b0) + j + 1;
       }
     }
   }
 
 #pragma unroll
   for (int k = 0; k < kPix; ++k) {
-    const int p = threadIdx.x + k * kThreads;
+    const int p = warp * gsplat::kWarpPix + k * 32 + lane;
     if (p >= P) continue;
     const long long o = static_cast<long long>(t) * P + p;
 #pragma unroll
@@ -171,6 +217,60 @@ composite_fwd_kernel(const float* __restrict__ entries, long long n_rows,
       accum[(static_cast<long long>(t) * 4 + c) * P + p] = acc[k][c];
     t_final[o] = __fmul_rn(t0[k], tp[k]);
     n_contrib[o] = last[k];
+  }
+}
+
+// What the compositor's kernels stage for every entry row of every tile:
+// the cull rectangle as they unpack it and the warp mask, for the tests.
+// One block per tile; rects is (n_rows, 5) int: x0, x1, y0, y1, mask.
+__global__ void cull_rects_kernel(const float* __restrict__ entries,
+                                  long long n_rows,
+                                  const int* __restrict__ tile_start,
+                                  const int* __restrict__ tile_count,
+                                  int n_tiles_x, int tile_h, int tile_w,
+                                  float alpha_min, int tile_id_base,
+                                  int* __restrict__ rects) {
+  __shared__ int s_wy0[kWarps], s_wy1[kWarps];
+  const int t = blockIdx.x;
+  const long long start = tile_start[t];
+  const long long count = gsplat::clamp_count(start, tile_count[t], n_rows);
+  float ox, oy;
+  gsplat::tile_origin(t, tile_id_base, n_tiles_x, tile_h, tile_w, &ox, &oy);
+  if (threadIdx.x < kWarps)
+    gsplat::warp_rows(threadIdx.x, tile_h * tile_w, tile_w,
+                      &s_wy0[threadIdx.x], &s_wy1[threadIdx.x]);
+  __syncthreads();
+  for (long long i = threadIdx.x; i < count; i += kThreads) {
+    const gsplat::Staged e = gsplat::stage_entry(
+        entries + (start + i) * 16, ox, oy, alpha_min, tile_h, tile_w, s_wy0,
+        s_wy1);
+    const gsplat::Rect r = gsplat::staged_rect(e.cut);
+    int* out = rects + (start + i) * 5;
+    out[0] = r.x0;
+    out[1] = r.x1;
+    out[2] = r.y0;
+    out[3] = r.y1;
+    out[4] = e.mask;
+  }
+}
+
+template <bool kHasTInit>
+void launch(bool rows32, int n_tiles, cudaStream_t s,
+            const float* entries, long long n_rows, const int* tile_start,
+            const int* tile_count, int n_tiles_x, int tile_h, int tile_w,
+            int chunk, float alpha_min, float alpha_max, float t_eps,
+            const float* t_init, int tile_id_base, float* accum,
+            float* t_final, int* n_contrib) {
+  if (rows32) {
+    composite_fwd_kernel<kHasTInit, true><<<n_tiles, kThreads, 0, s>>>(
+        entries, n_rows, tile_start, tile_count, n_tiles_x, tile_h, tile_w,
+        chunk, alpha_min, alpha_max, t_eps, t_init, tile_id_base, accum,
+        t_final, n_contrib);
+  } else {
+    composite_fwd_kernel<kHasTInit, false><<<n_tiles, kThreads, 0, s>>>(
+        entries, n_rows, tile_start, tile_count, n_tiles_x, tile_h, tile_w,
+        chunk, alpha_min, alpha_max, t_eps, t_init, tile_id_base, accum,
+        t_final, n_contrib);
   }
 }
 
@@ -200,17 +300,34 @@ int gsplat_composite_fwd(const float* entries, long long n_rows,
       tile_id_base < 0)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool rows32 = tile_w == 32;
   if (t_init != nullptr) {
-    composite_fwd_kernel<true><<<n_tiles, kThreads, 0, s>>>(
-        entries, n_rows, tile_start, tile_count, n_tiles_x, tile_h, tile_w,
-        chunk, alpha_min, alpha_max, t_eps, t_init, tile_id_base, accum,
-        t_final, n_contrib);
+    launch<true>(rows32, n_tiles, s, entries, n_rows, tile_start, tile_count,
+                 n_tiles_x, tile_h, tile_w, chunk, alpha_min, alpha_max,
+                 t_eps, t_init, tile_id_base, accum, t_final, n_contrib);
   } else {
-    composite_fwd_kernel<false><<<n_tiles, kThreads, 0, s>>>(
-        entries, n_rows, tile_start, tile_count, n_tiles_x, tile_h, tile_w,
-        chunk, alpha_min, alpha_max, t_eps, nullptr, tile_id_base, accum,
-        t_final, n_contrib);
+    launch<false>(rows32, n_tiles, s, entries, n_rows, tile_start, tile_count,
+                  n_tiles_x, tile_h, tile_w, chunk, alpha_min, alpha_max,
+                  t_eps, nullptr, tile_id_base, accum, t_final, n_contrib);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The staged cull rectangle and warp mask of every entry row in a tile's
+// range, into rects (n_rows, 5) i32 (rows no tile owns are left as they
+// are): what the tests hold to the plain rectangle. Not on any render path.
+int gsplat_composite_cull_rects(const float* entries, long long n_rows,
+                                const int* tile_start, const int* tile_count,
+                                int n_tiles, int n_tiles_x, int tile_h,
+                                int tile_w, float alpha_min, int tile_id_base,
+                                int* rects, void* stream) {
+  if (n_tiles <= 0) return 0;
+  if (tile_h * tile_w > kThreads * kPix || n_tiles_x <= 0 || tile_id_base < 0)
+    return cudaErrorInvalidValue;
+  cull_rects_kernel<<<n_tiles, kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      entries, n_rows, tile_start, tile_count, n_tiles_x, tile_h, tile_w,
+      alpha_min, tile_id_base, rects);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -23,7 +23,7 @@ using std::min;
 #define __global__
 #define __device__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __shared__ static
 struct dim3 {
   unsigned x, y, z;
@@ -43,6 +43,15 @@ float __shfl_xor_sync(unsigned, float, int);
 float __shfl_up_sync(unsigned, float, unsigned, int);
 float __shfl_sync(unsigned, float, int, int);
 int __any_sync(unsigned, int);
+int __all_sync(unsigned, int);
+unsigned __ballot_sync(unsigned, int);
+int __ffs(int);
+int __clz(int);
+float __frcp_rn(float);
+float __int_as_float(int);
+int __float_as_int(float);
+float2 make_float2(float, float);
+float4 make_float4(float, float, float, float);
 int __reduce_max_sync(unsigned, int);
 void __syncthreads();
 int __syncthreads_count(int);

@@ -11,6 +11,14 @@ version on the same inputs:
 - the compositor with ``t_init`` and ``tile_id_base`` and its backward from
   such a forward, at the compositor's gates; the depth-slab and tile-band
   renders on the card against the same on the CPU;
+- both compositor kernels on rows that try the cull rectangle (tiny,
+  tile-filling, long thin, nearly degenerate, non-finite, at the opacity
+  floor and above the clamp), on 32x32 and 16x16 tiles, a tile width that
+  is no power of two and a chunk that is none, with ``t_init`` and
+  ``tile_id_base``: n_contrib equal everywhere, the rectangle and warp
+  mask the kernels stage (``cull_rects_cuda``) equal to the plain formula's
+  row for row, nothing culled where alpha_min <= 0; the backward gives the
+  same bits twice;
 - the blocked prefix sum: against a float64 cumsum no more than twice as far
   as ``torch.cumsum`` in f32 is, exact on integers, the same bits on a
   second launch; the sharded renders on the card against the same on the
@@ -34,12 +42,16 @@ from gsplat_tpu_torch.models import gaussian_model as gm
 from gsplat_tpu_torch.ops import rasterize
 from gsplat_tpu_torch.ops import ssim as tssim
 from gsplat_tpu_torch.ops.composite_ref import (composite_tiles_plain,
+                                                cull_rects_plain,
                                                 slab_transmittance_plain)
 from gsplat_tpu_torch.ops.kernels import composite as tcomp
 from gsplat_tpu_torch.ops.kernels import scan as kscan
 from gsplat_tpu_torch.ops.kernels import ssim as kssim
 from gsplat_tpu_torch.parallel import prim_shard, sharded, tile_shard
 from gsplat_tpu_torch.train import trainer
+
+from torch_cull_cases import CFG as CULL_CFG
+from torch_cull_cases import KINDS, frame
 
 pytestmark = pytest.mark.cuda
 
@@ -258,6 +270,89 @@ def test_kernels_with_t_init_and_tile_id_base_match_plain(shape,
                                     t_init=torch.ones_like(t_init))
     for k in ("accum", "t_final", "n_contrib"):
         assert torch.equal(getattr(ones, k), getattr(uncut, k)), k
+
+
+@pytest.mark.parametrize("shape", [(32, 32, 64), (16, 16, 16), (8, 24, 12)],
+                         ids=["32x32", "16x16", "8x24-chunk12"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_kernels_on_rows_that_try_the_cull_rectangle(kind, shape,
+                                                     cuda_device):
+    """The lower tile row of a 2x2 frame of adversarial entries, with its
+    tile_id_base and a random t_init: the forward at the image gate, the
+    backward at the gradient gate with its atol scaled by the column's
+    largest gradient where that exceeds 1 (a column sums up to a tile's
+    pixels, in another order than autograd), zero on rows autograd leaves
+    at zero, and the same bits on a second launch. A row with a non-finite
+    field contributes nowhere; autograd gives it a NaN gradient (0 x NaN),
+    the kernel 0, so those rows are compared on the forward only."""
+    (entries, ts, tc), geo = frame(kind, shape, seed=2, device=cuda_device)
+    base = geo["n_tiles_x"]
+    ts, tc = ts[base:].contiguous(), tc[base:].contiguous()
+    geo = dict(geo, n_tiles_y=1, tile_id_base=base)
+    fwd_kw = dict(t_eps=CULL_CFG.transmittance_eps)
+    T, P = ts.shape[0], geo["tile_h"] * geo["tile_w"]
+    rng = np.random.default_rng(6)
+    t_init, ga, gt = (torch.tensor(v, dtype=torch.float32,
+                                   device=cuda_device)
+                      for v in (rng.uniform(0.05, 1.0, (T, P)),
+                                rng.standard_normal((T, 4, P)),
+                                rng.standard_normal((T, P))))
+    # what the kernels stage is the plain rectangle, row for row
+    rkw = {k: v for k, v in geo.items() if k not in ("chunk", "alpha_max")}
+    assert torch.equal(tcomp.cull_rects_cuda(entries, ts, tc, **rkw),
+                       cull_rects_plain(entries, ts, tc, **rkw))
+    x = entries.detach().requires_grad_()
+    plain = composite_tiles_plain(x, ts, tc, **geo, **fwd_kw, t_init=t_init)
+    ((plain.accum * ga).sum() + (plain.t_final * gt).sum()).backward()
+    kern = tcomp.composite_fwd_cuda(entries, ts, tc, **geo, **fwd_kw,
+                                    t_init=t_init)
+    for k in ("accum", "t_final"):
+        torch.testing.assert_close(getattr(kern, k), getattr(plain, k),
+                                   **IMG_TOL)
+    assert torch.equal(kern.n_contrib, plain.n_contrib)
+    # without t_init too (the other instantiation of the kernel)
+    plain1 = composite_tiles_plain(entries, ts, tc, **geo, **fwd_kw)
+    kern1 = tcomp.composite_fwd_cuda(entries, ts, tc, **geo, **fwd_kw)
+    for k in ("accum", "t_final"):
+        torch.testing.assert_close(getattr(kern1, k), getattr(plain1, k),
+                                   **IMG_TOL)
+    assert torch.equal(kern1.n_contrib, plain1.n_contrib)
+    bgeo = {k: v for k, v in geo.items() if k != "chunk"}
+    d = tcomp.composite_bwd_cuda(entries, ts, tc, kern.t_final,
+                                 kern.n_contrib, ga, gt, **bgeo)
+    again = tcomp.composite_bwd_cuda(entries, ts, tc, kern.t_final,
+                                     kern.n_contrib, ga, gt, **bgeo)
+    torch.cuda.synchronize()
+    assert torch.equal(d, again)
+    assert bool(torch.isfinite(d).all())
+    finite = torch.isfinite(entries).all(dim=1)
+    assert float(d[~finite].abs().sum()) == 0.0
+    want, got = x.grad[finite][:, :10], d[finite][:, :10]
+    atol = GRAD_TOL["atol"] * want.abs().amax(dim=0).clamp(min=1.0)
+    bad = (got - want).abs() > atol + GRAD_TOL["rtol"] * want.abs()
+    assert not bool(bad.any()), (
+        int(bad.sum()), float((got - want).abs().max()),
+        float(want.abs().max()))
+    assert bool((got[(want == 0).all(dim=1)] == 0).all())
+    if kind in ("random", "tiny", "anisotropic", "clamped"):
+        assert float(got.abs().max()) > 0
+
+
+@pytest.mark.parametrize("floor", [0.0, -1.0])
+def test_kernels_cull_nothing_without_a_floor(floor, cuda_device):
+    """alpha_min <= 0: every staged rectangle is the whole tile with all 8
+    warps, rows of negative opacity under a negative floor included, so the
+    alpha test alone decides."""
+    (entries, ts, tc), geo = frame("opacity_edge", (32, 32, 64), seed=3,
+                                   device=cuda_device)
+    geo = dict(geo, alpha_min=floor)
+    rkw = {k: v for k, v in geo.items() if k not in ("chunk", "alpha_max")}
+    rects = tcomp.cull_rects_cuda(entries, ts, tc, **rkw)
+    assert torch.equal(rects, cull_rects_plain(entries, ts, tc, **rkw))
+    owned = rects[:, 0] != -2
+    assert int(owned.sum()) == int(tc.sum())
+    assert bool((rects[owned] == torch.tensor(
+        [0, 31, 0, 31, 255], dtype=torch.int32, device=cuda_device)).all())
 
 
 def test_slab_and_band_renders_on_card_match_cpu(cuda_device):
