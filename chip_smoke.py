@@ -22,8 +22,11 @@ Phases, each printing its own line:
 3b. the training kernels against their plain versions on the card: the
    compositor backward (on 16 tiles of the phase-5 frame) against autograd
    through the plain compositor, with the same rectangle gate and shares
-   on the training frame, the SSIM map and its backward at
-   3x1920x1080 against the plain SSIM; each kernel timed by CUDA events;
+   on the training frame, the SSIM map (the same bits with and without
+   the partial maps its launch writes for the backward), the partial maps
+   and the one-launch backward at 3x1920x1080 against the plain SSIM,
+   with the pair's time and bound per step; each kernel timed by CUDA
+   events;
 3c. the depth-slab and tile-band forms of the kernels against their plain
    versions, on the phase-5 frame's entries split into 4 depth slabs: the
    compositor with a random ``t_init``, with slab 2's real arriving
@@ -91,7 +94,8 @@ from gsplat_tpu_torch.ops.kernels.composite import (composite_bwd_cuda,
                                                     slab_transmittance_cuda)
 from gsplat_tpu_torch.ops.kernels.scan import (blocked_cumsum_16_cuda,
                                                blocked_cumsum_16_plain)
-from gsplat_tpu_torch.ops.kernels.ssim import ssim_bwd_cuda, ssim_fwd_cuda
+from gsplat_tpu_torch.ops.kernels.ssim import (ssim_bwd_cuda, ssim_fwd_cuda,
+                                               ssim_partials_plain)
 from gsplat_tpu_torch.parallel import prim_shard, sharded, tile_shard
 from gsplat_tpu_torch.scene import ply as ply_lib
 from gsplat_tpu_torch.train import trainer
@@ -130,9 +134,15 @@ OPS_PER_EVAL_BWD = 60      # the backward's ~59 f32 operations + 1 exp
 OPS_PER_EVAL_TMIT = 18     # the alpha alone (16 + 1 exp) and one product
 # f32 operations per pixel: SSIM map = 3 products + 5 blurs x 2 passes x
 # 21 + ~20 for the map; backward = the same fields again + ~20 for the t
-# maps + 3 blurs x 42 + 4 to combine
+# maps + 3 blurs x 42 + 4 to combine (the counts of the two-launch
+# backward, kept so that the rows compare across PRs); the pair a training
+# step runs, forward with partial maps plus backward, at its least: the map
+# and the t maps once (233 + ~24), 3 blurs x 42 + 4, and 28 bytes (x, y
+# into the forward, the map out; x, y, g into the backward, d img1 out)
 OPS_SSIM_FWD = 233
 OPS_SSIM_BWD = 233 + 20 + 130
+OPS_SSIM_PAIR = 387
+BYTES_SSIM_PAIR = 28
 N_CHECK_TILES = 16         # tiles the compositor backward is checked on
 SMALL_W, SMALL_H, SMALL_N = 256, 128, 3000   # the small frame of phase 3
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -547,9 +557,11 @@ def check_composite_bwd(g, cam, cfg, rng):
 
 
 def check_ssim(dev, rng):
-    """The SSIM map and its backward against the plain SSIM on the card at
-    3x1080x1920, under the mean's uniform cotangent and a numpy-seeded
-    non-uniform one. Returns the two kernels' numbers."""
+    """The SSIM map, its partial maps and its backward against the plain
+    SSIM on the card at 3x1080x1920, under the mean's uniform cotangent and
+    a numpy-seeded non-uniform one; the map with and without the partial
+    maps and the backward twice, bit for bit. Returns the two kernels'
+    numbers (the backward's with the pair's)."""
     a = rng.uniform(0, 1, (3, H, W)).astype(np.float32)
     b = np.clip(a + 0.1 * rng.standard_normal(a.shape), 0, 1)
     # the non-uniform cotangent is 1e-2 of unit size: d img1 sums terms
@@ -559,12 +571,24 @@ def check_ssim(dev, rng):
                for v in (a, b, 1e-2 * rng.uniform(0, 1, a.shape)))
     n = x.numel()
     got = ssim_fwd_cuda(x, y)
+    got_p, p = ssim_fwd_cuda(x, y, partials=True)
+    check(torch.equal(got, got_p), "ssim_fwd: the map differs with and "
+          "without the partial maps")
     with torch.no_grad():
         want = ssim_lib.ssim_map(x, y)
+        want_p = ssim_partials_plain(x, y)
     fwd_err = float((got - want).abs().max())
+    p_err = float((p - want_p).abs().max())
     check(torch.allclose(got, want, **SSIM_TOL),
           f"ssim_fwd disagrees with the plain map (max {fwd_err})")
+    check(torch.allclose(p, want_p, **SSIM_TOL),
+          f"ssim_fwd's partial maps disagree with ssim_partials_plain (max "
+          f"{p_err})")
     fwd_ms = median_ms(lambda: ssim_fwd_cuda(x, y), 20)
+    fwd_p_ms = median_ms(lambda: ssim_fwd_cuda(x, y, partials=True), 20)
+    fwd_dev = kernel_device_ms(lambda: ssim_fwd_cuda(x, y), 5)
+    fwd_p_dev = kernel_device_ms(lambda: ssim_fwd_cuda(x, y, partials=True),
+                                 5)
     with torch.no_grad():
         fwd_plain_ms = median_ms(lambda: ssim_lib.ssim_map(x, y), 5)
 
@@ -573,26 +597,49 @@ def check_ssim(dev, rng):
     bwd_err = 0.0
     for cot in (torch.full_like(x, 1.0 / n), w):
         want = torch.autograd.grad(m, xg, cot, retain_graph=True)[0]
-        got = ssim_bwd_cuda(x, y, cot)
+        got = ssim_bwd_cuda(x, y, cot, p)
         bwd_err = max(bwd_err, float((got - want).abs().max()))
         check(torch.allclose(got, want, **SSIM_GRAD_TOL),
               f"ssim_bwd disagrees with autograd through the plain map "
               f"(max {bwd_err})")
-    bwd_ms = median_ms(lambda: ssim_bwd_cuda(x, y, w), 20)
+        check(torch.equal(got, ssim_bwd_cuda(x, y, cot, p)),
+              "ssim_bwd: two launches on one input differ")
+    bwd_ms = median_ms(lambda: ssim_bwd_cuda(x, y, w, p), 20)
+    bwd_dev = kernel_device_ms(lambda: ssim_bwd_cuda(x, y, w, p), 5)
     bwd_plain_ms = median_ms(lambda: torch.autograd.grad(
         m, xg, w, retain_graph=True), 5)
     del m, xg
 
+    def pair():
+        ssim_bwd_cuda(x, y, w, ssim_fwd_cuda(x, y, partials=True)[1])
+    pair_ms = median_ms(pair, 20)
+    pair_dev = kernel_device_ms(pair, 5)
+    pair_bnd = bound(BYTES_SSIM_PAIR * n, OPS_SSIM_PAIR * n)
+
     fwd = dict(max_abs_err=fwd_err, ms=fwd_ms, plain_ms=fwd_plain_ms,
+               device_ms=fwd_dev, partials_ms=fwd_p_ms,
+               partials_device_ms=fwd_p_dev, partials_max_abs_err=p_err,
                **bound(12 * n, OPS_SSIM_FWD * n))
     bwd = dict(max_abs_err=bwd_err, ms=bwd_ms, plain_ms=bwd_plain_ms,
+               device_ms=bwd_dev, pair_ms=pair_ms, pair_device_ms=pair_dev,
+               pair_bound_ms=pair_bnd["bound_ms"],
+               pair_bound_by=pair_bnd["bound_by"],
                **bound(16 * n, OPS_SSIM_BWD * n))
     print(f"kernel vs plain: ssim_fwd at 3x{H}x{W} max_abs_err "
-          f"{fwd_err:.3e}, kernel {fwd_ms:.3f} ms, plain {fwd_plain_ms:.3f} "
-          f"ms, bound {fwd['bound_ms']:.4f} ms ({fwd['bound_by']}); "
-          f"ssim_bwd (2 launches) max_abs_err {bwd_err:.3e}, kernel "
-          f"{bwd_ms:.3f} ms, plain backward {bwd_plain_ms:.3f} ms, bound "
-          f"{bwd['bound_ms']:.4f} ms ({bwd['bound_by']})", flush=True)
+          f"{fwd_err:.3e} (the same bits with the partial maps, which are "
+          f"{p_err:.3e} from ssim_partials_plain), kernel {fwd_ms:.3f} ms, "
+          f"{fwd_p_ms:.3f} with the partial maps (device {fwd_dev:.4f} / "
+          f"{fwd_p_dev:.4f}), plain {fwd_plain_ms:.3f} ms, bound "
+          f"{fwd['bound_ms']:.4f} ms ({fwd['bound_by']}); ssim_bwd (1 "
+          f"launch) max_abs_err {bwd_err:.3e}, the same bits twice, kernel "
+          f"{bwd_ms:.3f} ms (device {bwd_dev:.4f}), plain backward "
+          f"{bwd_plain_ms:.3f} ms, bound {bwd['bound_ms']:.4f} ms "
+          f"({bwd['bound_by']})", flush=True)
+    print(f"ssim pair per training step (forward with the partial maps, "
+          f"then the backward): {pair_ms:.3f} ms by events, {pair_dev:.4f} "
+          f"ms on the device, bound {pair_bnd['bound_ms']:.4f} ms "
+          f"({pair_bnd['bound_by']}: {BYTES_SSIM_PAIR} B and "
+          f"{OPS_SSIM_PAIR} operations per pixel)", flush=True)
     return fwd, bwd
 
 
@@ -814,11 +861,11 @@ def train(state, cam, gt, cfg, opt):
 
 PALLAS = "gsplat_tpu/ops/pallas/"
 # Every kernel of the port: its wrapper (which counts its launches), the TPU
-# kernel bodies it replaces, and its launches per training step (the SSIM
-# backward is two kernels), per slab render (forward; the backward kernel in
-# the backward), per band render and per sharded step (the scan in the
-# backward of the ring and slab transients only; the sharded step's loss
-# takes the plain SSIM, as the JAX package's does). The build, the launch
+# kernel bodies it replaces, and its launches per training step, per slab
+# render (forward; the backward kernel in the backward), per band render and
+# per sharded step (the scan in the backward of the ring and slab transients
+# only; the sharded step's loss takes the plain SSIM, as the JAX package's
+# does). The build, the launch
 # checks and the ``kernels`` line all read this one table.
 KERNELS = {
     "composite_fwd": dict(
@@ -839,7 +886,7 @@ KERNELS = {
     "ssim_fwd": dict(wrapper=ssim_fwd_cuda, per_step=1, per_slab_render=0,
                      per_band_render=0, per_sharded_step=0,
                      replaces=["ssim_kernel.py:90"]),
-    "ssim_bwd": dict(wrapper=ssim_bwd_cuda, per_step=2, per_slab_render=0,
+    "ssim_bwd": dict(wrapper=ssim_bwd_cuda, per_step=1, per_slab_render=0,
                      per_band_render=0, per_sharded_step=0,
                      replaces=["ssim_kernel.py:98"]),
 }

@@ -98,7 +98,7 @@ def main():
     # ---- build, ptxas report, outputs of every variant
     outs = {}
     for name, path in variants.items():
-        with kcomp.kernels_from(path):
+        with build.kernels_from(path):
             report = build.build(("composite_fwd", "composite_bwd"),
                                  pathlib.Path(path).resolve())
             regs = "; ".join(ln.strip() for _, _, log in report.values()
@@ -142,7 +142,7 @@ def main():
              for n in names}
     for order in (names, names[::-1]):
         for name in order:
-            with kcomp.kernels_from(variants[name]), torch.no_grad():
+            with build.kernels_from(variants[name]), torch.no_grad():
                 ms = {k: [] for k in times[name]}
                 for (label, args, kw), (fwd, _) in zip(work, outs[name]):
                     bargs = args + (fwd.t_final, fwd.n_contrib, ga, g_t)
@@ -176,7 +176,7 @@ def main():
         opt = OptimizationConfig()
         bg = torch.zeros(3, device=dev)
         for name in names + names[::-1]:
-            with kcomp.kernels_from(variants[name]):
+            with build.kernels_from(variants[name]):
                 state = trainer.init_state(g, 1)
                 state, _ = cs.train(state, cam, gt, cfg, opt)     # warm-up
                 torch.cuda.synchronize()

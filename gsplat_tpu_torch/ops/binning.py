@@ -5,11 +5,16 @@ laid out chunk-aligned. Counterpart of the path gsplat_tpu/ops/binning.py
 
 The JAX package builds the expansion from scatters and int32 cumsums that
 wrap on purpose, because gathers are slow on the TPU. Here the plain
-PyTorch idiom does the same job: one stable depth sort of the gaussians,
-``repeat_interleave`` for the expansion, ``bincount`` for the per-tile
-histogram and one stable sort of the packed (tile, depth-rank) key. Index
-arithmetic runs in int64; the tile tables leave as int32, which is what the
-compositor takes. The results equal the JAX ones exactly.
+PyTorch idiom does the same job: one stable depth sort of the gaussians, a
+``searchsorted`` of the slot index in the gaussians' pair offsets for the
+expansion into the ``m_cap`` static slots (as JAX's ``_expand`` fills
+them: slot s is the s-th pair in gaussian-major order, and slots at or past
+the frame's pair count are dead), a 2-D difference array over the
+rectangles for the per-tile histogram of every pair, also those past
+``m_cap``, and one stable sort of the packed (tile, depth-rank) key. No
+tensor is sized by the frame's pair count and the host reads no count.
+Index arithmetic runs in int64; the tile tables leave as int32, which is
+what the compositor takes. The results equal the JAX ones exactly.
 
 ``expand_slab`` and ``merge_slab_binning`` are the slab-streamed form that
 gaussian-sharded storage uses (parallel/sharded.py, the ``slab``
@@ -75,6 +80,40 @@ def tile_rect(mean2d: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor,
     return x0.long(), y0.long(), x1.long(), y1.long()
 
 
+def _rect_counts(x0, y0, x1, y1, live, n_tiles_x: int, n_tiles_y: int):
+    """(n_tiles_y, n_tiles_x) int64 pairs per tile over the rectangles
+    [x0,x1)×[y0,y1) of the ``live`` gaussians, without expanding them: +1
+    at (y0,x0) and (y1,x1), −1 at (y0,x1) and (y1,x0) of a difference
+    array, then a cumsum along each axis. Exact integers."""
+    stride = n_tiles_x + 1
+    one = live.long()
+    diff = torch.zeros((n_tiles_y + 1) * stride, dtype=torch.long,
+                       device=x0.device)
+    for yy, xx, sign in ((y0, x0, 1), (y0, x1, -1), (y1, x0, -1),
+                         (y1, x1, 1)):
+        diff.index_add_(0, yy * stride + xx, sign * one)
+    grid = diff.view(n_tiles_y + 1, stride).cumsum(0).cumsum(1)
+    return grid[:n_tiles_y, :n_tiles_x]
+
+
+def _expand_slots(counts: torch.Tensor, x0, y0, w, n_tiles_x: int,
+                  n_tiles: int, m: int):
+    """The gaussian-major pair list in ``m`` static slots: slot s holds the
+    k-th pair of gaussian g, offsets[g] <= s < offsets[g] + counts[g], which
+    covers the k-th tile of g's rectangle row by row. Returns (g, tile,
+    live); a dead slot (s >= the pair count) has live False, tile
+    ``n_tiles`` and g clamped into range."""
+    ends = torch.cumsum(counts, 0)
+    s = torch.arange(m, device=counts.device)
+    g = torch.searchsorted(ends, s, right=True)
+    live = g < counts.shape[0]
+    g = torch.clamp(g, max=counts.shape[0] - 1)
+    k = s - (ends[g] - counts[g])
+    wg = torch.clamp(w[g], min=1)
+    tile = (y0[g] + k // wg) * n_tiles_x + x0[g] + k % wg
+    return g, torch.where(live, tile, n_tiles), live
+
+
 def bin_gaussians(mean2d: torch.Tensor, depth: torch.Tensor,
                   radius: torch.Tensor, *, rx: torch.Tensor, ry: torch.Tensor,
                   image_width: int, image_height: int, tile_h: int,
@@ -113,17 +152,16 @@ def bin_gaussians(mean2d: torch.Tensor, depth: torch.Tensor,
     total = counts.sum()
     offsets = torch.cumsum(counts, 0) - counts
 
-    # --- expansion: entry e of gaussian g covers the k-th tile of its rect
-    g_all = torch.repeat_interleave(torch.arange(n, device=dev), counts)
-    k = torch.arange(g_all.shape[0], device=dev) - offsets[g_all]
-    wg = w[g_all]
-    tile_all = (y0[g_all] + k // wg) * n_tiles_x + x0[g_all] + k % wg
-    # The histogram counts every pair, also past m_cap (the JAX package's
-    # rect-indicator product does the same), then clamps to m_cap.
-    tile_count = torch.clamp(torch.bincount(tile_all, minlength=n_tiles),
-                             max=m_cap)
+    # --- expansion into m_cap static slots; the histogram counts every
+    # pair, also past m_cap (the JAX package's rect-indicator product does
+    # the same), then clamps to m_cap
+    g_slot, tile, live = _expand_slots(counts, x0, y0, w, n_tiles_x,
+                                       n_tiles, m_cap)
+    gidx = torch.where(live, g_slot, n)            # pairs past m_cap drop
+    tile_count = torch.clamp(
+        _rect_counts(x0, y0, x1, y1, counts > 0, n_tiles_x,
+                     n_tiles_y).reshape(-1), max=m_cap)
     tile_start = torch.cumsum(tile_count, 0) - tile_count
-    gidx, tile = g_all[:m_cap], tile_all[:m_cap]   # pairs past m_cap drop
     overflow = torch.clamp(total - m_cap, min=0)
 
     # --- chunk-aligned layout
@@ -140,24 +178,27 @@ def bin_gaussians(mean2d: torch.Tensor, depth: torch.Tensor,
     overflow = torch.maximum(overflow, total_pad - pad_cap)
 
     # (tile, depth rank) is unique per pair, so one sort of the packed key
-    # gives the per-tile depth order; entry r of tile t goes to
-    # padded_start[t] + r. Dead slots keep the sentinel gaussian n.
+    # gives the per-tile depth order (dead slots, keyed past every tile,
+    # sort last); entry r of tile t lands at padded_start[t] + r. Dead slots
+    # of the layout keep the sentinel gaussian n.
     key, order = torch.sort(tile * (n + 1) + gidx, stable=True)
-    tile_s, gidx_s = key // (n + 1), key % (n + 1)
-    rank = torch.arange(key.shape[0], device=dev) - tile_start[tile_s]
-    dest = padded_start[tile_s] + rank
-    keep = dest < m_out                    # only an overflow frame drops any
-    gidx_aligned = torch.full((m_out,), n, dtype=torch.long, device=dev)
-    gidx_aligned[dest[keep]] = gidx_s[keep]
+    gidx_aligned = _aligned_layout(key % (n + 1), n, tile_start, tile_count,
+                                   padded_start, m_out)
 
     extras = {}
     if presort_tables:
         # presort entry e is the e-th pair in gaussian-major depth order; a
         # dead one (e >= total) points into the layout's dead tail, where
         # the JAX package's sort leaves it
+        tile_s = key // (n + 1)
+        live_s = tile_s < n_tiles
+        tile_s = torch.clamp(tile_s, max=n_tiles - 1)
+        dest = padded_start[tile_s] + torch.arange(m_cap, device=dev) \
+            - tile_start[tile_s]
+        keep = live_s & (dest < m_out)     # only an overflow frame drops any
         e = torch.arange(m_cap, device=dev)
         inv_src = torch.clamp(num_padded + e - total, max=m_out - 1)
-        inv_src[order[keep]] = dest[keep]
+        inv_src[order] = torch.where(keep, dest, inv_src[order])
         extras = dict(inv_src=inv_src, g_offsets=offsets, g_counts=counts)
 
     # memory-safety clamp for overflow frames
@@ -168,6 +209,24 @@ def bin_gaussians(mean2d: torch.Tensor, depth: torch.Tensor,
                    tile_count=tile_count.to(torch.int32),
                    num_pairs=total, overflow=overflow,
                    num_padded=num_padded, perm=perm, **extras)
+
+
+def _aligned_layout(values_s: torch.Tensor, sentinel: int,
+                    tile_start: torch.Tensor, tile_count: torch.Tensor,
+                    padded_start: torch.Tensor, m_out: int) -> torch.Tensor:
+    """The chunk-aligned layout (m_out,) of the tile-sorted entries
+    ``values_s``, as a gather: slot d in tile t's padded range holds sorted
+    entry tile_start[t] + r, r = d − padded_start[t], when r <
+    tile_count[t], else ``sentinel``. The same layout a scatter of each
+    entry to padded_start[t] + its rank writes, with no scatter (whose
+    dropped entries would need a target) and no host read."""
+    d = torch.arange(m_out, device=values_s.device)
+    t = torch.searchsorted(padded_start, d, right=True) - 1
+    r = d - padded_start[t]
+    src = tile_start[t] + r
+    live = (r < tile_count[t]) & (src < values_s.shape[0])
+    return torch.where(live, values_s[torch.clamp(src, max=values_s.shape[0]
+                                                  - 1)], sentinel)
 
 
 class SlabExpansion(NamedTuple):
@@ -201,8 +260,6 @@ def expand_slab(mean2d: torch.Tensor, depth: torch.Tensor,
     the concatenated layout. The depth key is the f32 depth's bit pattern,
     which orders as the depth does for depth > 0. ``tile_row_base`` as in
     ``bin_gaussians``."""
-    dev = mean2d.device
-    n = mean2d.shape[0]
     n_tiles_x = -(-image_width // tile_w)
     n_tiles_y = -(-image_height // tile_h)
     n_tiles = n_tiles_x * n_tiles_y
@@ -216,26 +273,15 @@ def expand_slab(mean2d: torch.Tensor, depth: torch.Tensor,
     total = counts.sum()
     offsets = torch.cumsum(counts, 0) - counts
 
-    g_all = torch.repeat_interleave(torch.arange(n, device=dev), counts)
-    k = torch.arange(g_all.shape[0], device=dev) - offsets[g_all]
-    wg = w[g_all]
-    tile_all = (y0[g_all] + k // wg) * n_tiles_x + x0[g_all] + k % wg
+    g, tile, live = _expand_slots(counts, x0, y0, w, n_tiles_x, n_tiles,
+                                  m_slab)
     # every pair counts in the histogram, also those past m_slab
-    count_grid = torch.bincount(tile_all, minlength=n_tiles).reshape(
-        n_tiles_y, n_tiles_x)
+    count_grid = _rect_counts(x0, y0, x1, y1, counts > 0, n_tiles_x,
+                              n_tiles_y)
     dbits = depth.contiguous().view(torch.int32).long()
-
-    def padded(values, sentinel):
-        out = torch.full((m_slab,), sentinel, dtype=torch.long, device=dev)
-        live = values[:m_slab]
-        out[:live.shape[0]] = live
-        return out
-
-    g_live = g_all[:m_slab]
     return SlabExpansion(
-        tile=padded(tile_all, n_tiles), dkey=padded(dbits[g_live],
-                                                    _DKEY_SENTINEL),
-        gidx=padded(row_base + g_live, sentinel_row), counts=counts,
+        tile=tile, dkey=torch.where(live, dbits[g], _DKEY_SENTINEL),
+        gidx=torch.where(live, row_base + g, sentinel_row), counts=counts,
         offsets=slab_base_entry + offsets, count_grid=count_grid,
         total=total, overflow=torch.clamp(total - m_slab, min=0))
 
@@ -289,11 +335,10 @@ def merge_slab_binning(slabs, *, sentinel_row: int, image_width: int,
     p = torch.arange(m_cap, device=dev)
     dest = p + shift[torch.searchsorted(tile_start, p, right=True) - 1]
     keep = dest < m_out                    # only an overflow frame drops any
-    gidx_aligned = torch.full((m_out,), sentinel_row, dtype=torch.long,
-                              device=dev)
-    gidx_aligned[dest[keep]] = gidx_s[keep]
+    gidx_aligned = _aligned_layout(gidx_s, sentinel_row, tile_start,
+                                   tile_count, padded_start, m_out)
     inv_src = torch.zeros((m_cap,), dtype=torch.long, device=dev)
-    inv_src[e_s[keep]] = dest[keep]
+    inv_src[e_s] = torch.where(keep, dest, 0)
 
     padded_start = torch.clamp(padded_start, max=m_out - align)
     tile_count = torch.minimum(tile_count, m_out - padded_start)

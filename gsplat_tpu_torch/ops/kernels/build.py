@@ -6,10 +6,12 @@ directory git ignores), the hash covering the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source builds anew. Sources
 build only from this checkout, at first use; nothing is built when a module
 is imported. Every function takes ``csrc``, another copy of the sources (an
-older commit's, to time beside this one's); the wrappers use the checkout's.
+older commit's, to time beside this one's); the wrappers launch from the
+checkout's, or inside ``kernels_from`` from another copy.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -25,6 +27,24 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 KERNELS = ("composite_fwd", "composite_bwd", "slab_tmit", "scan", "ssim_fwd",
            "ssim_bwd")
+_csrc = [CSRC]      # the sources the wrappers launch: the last one
+
+
+@contextlib.contextmanager
+def kernels_from(csrc):
+    """Inside the block the wrappers build and launch their kernels from
+    ``csrc``, another copy of the sources (an older commit's, to hold and
+    time beside this checkout's in one process)."""
+    _csrc.append(Path(csrc).resolve())
+    try:
+        yield
+    finally:
+        _csrc.pop()
+
+
+def sources() -> Path:
+    """The sources the wrappers launch from now."""
+    return _csrc[-1]
 
 
 def nvcc() -> str:
@@ -45,7 +65,9 @@ def library_path(name: str, csrc: Path = CSRC) -> Path:
 def build(names=KERNELS, csrc: Path = CSRC) -> dict:
     """Compile every named source that has no library yet, one nvcc each,
     all started together. Returns {name: (library path, seconds, ptxas
-    report)}; raises with nvcc's output if any build fails."""
+    report)}, the report kept beside the library for a later call (seconds
+    0 for a library that was built already); raises with nvcc's output if
+    any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
@@ -58,14 +80,18 @@ def build(names=KERNELS, csrc: Path = CSRC) -> dict:
             [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out)
-    report = {name: (library_path(name, csrc), 0.0, "cached")
-              for name in names}
+    report = {}
+    for name in names:
+        log = library_path(name, csrc).with_suffix(".log")
+        report[name] = (library_path(name, csrc), 0.0,
+                        log.read_text() if log.exists() else "cached")
     errors = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
         report[name] = (out, time.perf_counter() - t0, log)
     if errors:

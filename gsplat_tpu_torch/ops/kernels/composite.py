@@ -12,7 +12,6 @@ are the oracles the kernels are held to.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 from pathlib import Path
@@ -39,23 +38,8 @@ _CULL_RECTS_ARGTYPES = (_TABLES + [ctypes.c_int] * 4 + [ctypes.c_float]
                         + [ctypes.c_int] + [_P] * 2)
 
 
-_csrc = [build.CSRC]      # the sources the wrappers launch: the last one
-
-
-@contextlib.contextmanager
-def kernels_from(csrc):
-    """Inside the block the wrappers build and launch their kernels from
-    ``csrc``, another copy of the sources (an older commit's, to hold and
-    time beside this checkout's in one process)."""
-    _csrc.append(Path(csrc).resolve())
-    try:
-        yield
-    finally:
-        _csrc.pop()
-
-
 def _lib(name: str):
-    return _bound(name, _csrc[-1])
+    return _bound(name, build.sources())
 
 
 @functools.lru_cache(maxsize=None)

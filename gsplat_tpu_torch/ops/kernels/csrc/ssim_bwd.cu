@@ -1,4 +1,5 @@
-// Fused SSIM backward for Hopper (sm_90a): d img1 of the SSIM map.
+// Fused SSIM backward for Hopper (sm_90a): d img1 of the SSIM map, in one
+// launch, from the partial maps the forward wrote.
 //
 // Replaces the TPU kernel gsplat_tpu/ops/pallas/ssim_kernel.py `_bwd_kernel`
 // (reached through `_fused_bwd`) and computes what autograd through the
@@ -6,22 +7,24 @@
 // with img2 a constant, from the map's cotangent g (C, H, W):
 //   d img1 = blur(t_mu) + 2 x blur(t_x2) + y blur(t_xy)
 // (the window is symmetric, so the transposed blur is the blur), where the
-// t maps are the cotangents of the blurred fields mu1, blur x^2, blur xy
-// (ssim_kernel.py:103-120; m1 = [blur x^2 - mu1^2 > 0] is the variance
-// clamp's mask).
+// t maps are the cotangents of the blurred fields mu1, blur x^2 and blur xy
+// (ssim_kernel.py:103-120). Each is linear in g: t = g * p, with
+// p = (p_mu, p_x2, p_xy) written by ssim_fwd.cu beside the map
+// (ops/kernels/ssim.py `ssim_partials_plain`), so nothing of the forward
+// is recomputed here. The plain version is `ssim_bwd_plain`, operation for
+// operation.
 //
-// Two launches, because the t maps are needed on a 5-pixel halo around
-// each output tile: (1) `ssim_tmaps_kernel` recomputes the five blurred
-// fields of its tile, as ssim_fwd.cu does, and writes t_mu, t_x2, t_xy to
-// device memory; (2) `ssim_combine_kernel` blurs the three t maps of its
-// tile and halo and combines them with x and y.
+// What bounds it on this card: per pixel it reads g, the three p maps, x and
+// y (24 bytes) and writes 4, and does 3 blurs x 42 + 3 products + 4 rounded
+// f32 operations: ~0.05 ms of memory against ~0.03 ms of f32 issue at
+// 3x1080x1920, so memory.
 //
-// What bounds it on this card: 16 bytes of inputs and outputs per pixel
-// against 8 blurs x 44 and ~50 more f32 operations: about equal bounds,
-// ~0.03 ms each at 3x1080x1920. The design adds 24 bytes per pixel of t
-// maps written and read back (mostly through the 50 MB L2) in exchange
-// for a simple halo: a one-launch form would recompute the fields on a
-// 26 x 42 halo per tile, 2.1x the blur work.
+// What the design does about it (ssim_tile.cuh): a block stages g and the
+// three p maps on its tile and halo asynchronously (the halo's mostly from
+// L2), forms t = g * p in registers as the forward forms its products, blurs
+// the three t fields with the forward's register passes, and combines them
+// with x and y read in whole row segments. No scratch map goes to device
+// memory, and each input is read from device memory once.
 
 #include "ssim_tile.cuh"
 
@@ -29,99 +32,81 @@ namespace {
 
 using namespace ssim;
 
-__global__ void __launch_bounds__(kThreads)
-ssim_tmaps_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                  const float* __restrict__ g, float* __restrict__ tmaps,
-                  int C, int H, int W, Window win, float c1, float c2) {
-  __shared__ float src[5][kSH][kSW];
-  __shared__ float mid[5][kTH][kSW];
-  const long long n = static_cast<long long>(C) * H * W;
-  const long long plane = static_cast<long long>(blockIdx.z) * H * W;
-  const int ox = blockIdx.x * kTW, oy = blockIdx.y * kTH;
-  five_fields(x + plane, y + plane, H, W, ox, oy, src, mid, win);
-  const int gx = ox + threadIdx.x;
-  for (int r = threadIdx.y; r < kTH; r += kBY) {
-    const int gy = oy + r;
-    if (gy >= H || gx >= W) continue;
-    float m[5];
-    horizontal<5>(mid, win, r, threadIdx.x, m);
-    const Terms s = terms(m, c1, c2);
-    const long long o = plane + static_cast<long long>(gy) * W + gx;
-    const float gv = g[o];
-    const float inv_cd = 1.f / (s.c * s.d);
-    const float dA = gv * s.b * inv_cd;
-    const float dB = gv * s.a * inv_cd;
-    const float ab_cd = s.a * s.b * inv_cd;
-    const float dC = -gv * ab_cd / s.c;
-    const float dD = -gv * ab_cd / s.d;
-    const float m1 = s.v1 > 0.f ? 1.f : 0.f;
-    tmaps[o] = 2.f * (m[1] * (dA - dB) + m[0] * (dC - dD * m1));   // t_mu
-    tmaps[n + o] = dD * m1;                                        // t_x2
-    tmaps[2 * n + o] = 2.f * dB;                                   // t_xy
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-ssim_combine_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                    const float* __restrict__ tmaps, float* __restrict__ dx,
-                    int C, int H, int W, Window win) {
-  __shared__ float src[3][kSH][kSW];
-  __shared__ float mid[3][kTH][kSW];
-  const long long n = static_cast<long long>(C) * H * W;
-  const long long plane = static_cast<long long>(blockIdx.z) * H * W;
-  const int ox = blockIdx.x * kTW, oy = blockIdx.y * kTH;
+// (g, p_mu, p_x2, p_xy) -> (t_mu, t_x2, t_xy) = g * p
+struct TMaps {
+  __device__ __forceinline__ void operator()(const float (&in)[4],
+                                             float (&v)[3]) const {
 #pragma unroll
-  for (int f = 0; f < 3; ++f)
-    load_halo(tmaps + f * n + plane, H, W, ox, oy, src[f]);
-  __syncthreads();
-  vertical<3>(src, mid, win);
-  __syncthreads();
-  const int gx = ox + threadIdx.x;
-  for (int r = threadIdx.y; r < kTH; r += kBY) {
-    const int gy = oy + r;
-    if (gy >= H || gx >= W) continue;
-    float bl[3];
-    horizontal<3>(mid, win, r, threadIdx.x, bl);
-    const long long o = plane + static_cast<long long>(gy) * W + gx;
-    dx[o] = bl[0] + 2.f * x[o] * bl[1] + y[o] * bl[2];
+    for (int k = 0; k < 3; ++k) v[k] = __fmul_rn(in[0], in[k + 1]);
   }
-}
+};
 
-Window make_window(const float* window) {
-  Window win;
-  for (int t = 0; t < kTaps; ++t) win.w[t] = window[t];
-  return win;
-}
+__global__ void __launch_bounds__(kThreads, 2)
+ssim_bwd_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                const float* __restrict__ g, const float* __restrict__ p,
+                float* __restrict__ dx, int C, int H, int W, bool vec,
+                Window win) {
+  extern __shared__ __align__(16) float smem[];
+  float* src = smem;                      // (4, kSH, kSW), then
+  float* res = smem;                      // (3, kTH, kOP)
+  float* mid = smem + smem_floats(4, 0, 3);                 // (3, kTH, kMP)
+  const long long n = static_cast<long long>(C) * H * W;
+  const long long plane = static_cast<long long>(blockIdx.z) * H * W;
+  const int ox = blockIdx.x * kTW, oy = blockIdx.y * kTH;
 
-dim3 grid_of(int C, int H, int W) {
-  return dim3((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, C);
+  const float* const in[4] = {g + plane, p + plane, p + n + plane,
+                              p + 2 * n + plane};
+  const float* xp = x + plane;
+  const float* yp = y + plane;
+  // x and y of this thread's pixels, loaded while the tile is staged and
+  // blurred
+  float xv[kPix], yv[kPix];
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    int at;
+    const long long o = tile_pixel(k, H, W, ox, oy, &at);
+    xv[k] = o >= 0 ? xp[o] : 0.f;
+    yv[k] = o >= 0 ? yp[o] : 0.f;
+  }
+  stage<4>(in, H, W, ox, oy, vec, src);
+  vertical<4, 3>(src, mid, win, TMaps());
+
+  float bl[3][kRows];
+  horizontal<3>(mid, bl, win);
+  const int at = seg_row() * kOP + seg_col();
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) res[k * kTH * kOP + at + j] = bl[k][j];
+  __syncthreads();
+  float* dxp = dx + plane;
+  for_tile(H, W, ox, oy, [&](int k, int i, long long o) {
+    const float two_x = __fmul_rn(2.f, xv[k]);
+    dxp[o] = __fadd_rn(
+        __fadd_rn(res[i], __fmul_rn(two_x, res[kTH * kOP + i])),
+        __fmul_rn(yv[k], res[2 * kTH * kOP + i]));
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
-// x, y, g: (C, H, W) float32 contiguous; tmaps: (3, C, H, W) float32
-// scratch; window: 11 host floats. Launch (1) of 2. Returns cudaError_t.
-int gsplat_ssim_bwd_tmaps(const float* x, const float* y, const float* g,
-                          float* tmaps, int C, int H, int W,
-                          const float* window, float c1, float c2,
-                          void* stream) {
+// x, y, g, dx: (C, H, W) float32, contiguous; p: (3, C, H, W) float32, the
+// forward's partial maps; window: 11 host floats. One launch on `stream`;
+// returns its cudaError_t (0 on success).
+int gsplat_ssim_bwd(const float* x, const float* y, const float* g,
+                    const float* p, float* dx, int C, int H, int W,
+                    const float* window, void* stream) {
   if (C <= 0 || H <= 0 || W <= 0) return 0;
-  ssim_tmaps_kernel<<<grid_of(C, H, W), dim3(kBX, kBY), 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      x, y, g, tmaps, C, H, W, make_window(window), c1, c2);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// tmaps from launch (1); dx: (C, H, W) float32 output. Launch (2) of 2.
-int gsplat_ssim_bwd_combine(const float* x, const float* y,
-                            const float* tmaps, float* dx, int C, int H,
-                            int W, const float* window, void* stream) {
-  if (C <= 0 || H <= 0 || W <= 0) return 0;
-  ssim_combine_kernel<<<grid_of(C, H, W), dim3(kBX, kBY), 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      x, y, tmaps, dx, C, H, W, make_window(window));
+  const int bytes = smem_floats(4, 3, 3) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssim_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool vec = aligned16(W, {g, p});
+  ssim_bwd_kernel<<<grid_of(C, H, W), kThreads, bytes,
+                    static_cast<cudaStream_t>(stream)>>>(
+      x, y, g, p, dx, C, H, W, vec, make_window(window));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,13 +4,15 @@ overflow, num_padded, and perm on the visible gaussians (dead slots share
 one depth, so their order among themselves is free); with
 ``presort_tables`` also inv_src, g_offsets and g_counts; and every integer
 output of the slab-streamed form (``expand_slab``, ``merge_slab_binning``).
-In an overflow frame only the reported counts are compared: its content is
-garbage by contract."""
+In an overflow frame only the reported counts are compared (its content is
+garbage by contract), and no tensor is sized by the frame's pair count."""
 import functools
 
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 import jax
 import jax.numpy as jnp
@@ -245,3 +247,110 @@ def test_tile_row_base_windows_are_the_frames_rows(rng):
             b = full.gidx_sorted[int(full.tile_start[ft]):][
                 :int(full.tile_count[ft])]
             np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+class _Longest(TorchDispatchMode):
+    """The most elements of any tensor an operation makes inside the
+    block."""
+
+    def __init__(self):
+        super().__init__()
+        self.longest = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                self.longest = max(self.longest, t.numel())
+        return out
+
+
+def _huge_splats(rng, n, W, H):
+    """n gaussians whose rectangles cover the whole frame, and 20 small
+    ones: a frame with a few huge splats (an opacity reset, a bad step, a
+    camera close to the scene)."""
+    mean2d = np.concatenate([
+        rng.uniform(0, 1, (n, 2)) * [W, H],
+        rng.uniform(0, 1, (20, 2)) * [W, H]]).astype(np.float32)
+    ext = np.concatenate([np.full(n, 4.0 * max(W, H)),
+                          rng.uniform(2, 40, 20)]).astype(np.float32)
+    return dict(mean2d=mean2d,
+                depth=rng.uniform(1, 10, n + 20).astype(np.float32),
+                radius=np.ceil(ext).astype(np.int32), rx=ext, ry=ext)
+
+
+@pytest.mark.parametrize("form", ["bin_gaussians", "expand_slab"])
+def test_overflow_frame_allocates_within_capacity(rng, form):
+    """A frame whose pair count is >= 100x every capacity reports its
+    overflow with no tensor sized by that count: no operation makes a
+    tensor longer than the pair capacity plus pad_cap, the (tiles_y + 1) x
+    (tiles_x + 1) difference array or the gaussian count. Counts as JAX
+    reports them; ``expand_slab``'s slots and histogram equal JAX's too
+    (both fill the first m_slab pairs)."""
+    W, H, th, tw = 1920, 1088, 32, 32
+    n_tiles = (W // tw) * (H // th)
+    arrs = _huge_splats(rng, 200, W, H)
+    kw = dict(image_width=W, image_height=H, tile_h=th, tile_w=tw)
+    m_cap, pad_cap = 64, 4 * 16
+    limit = max(m_cap + pad_cap, (W // tw + 1) * (H // th + 1),
+                arrs["depth"].shape[0])
+    ts = {k: torch.tensor(v) for k, v in arrs.items()}
+    names = ("mean2d", "depth", "radius", "rx", "ry")
+    with _Longest() as seen:
+        if form == "bin_gaussians":
+            bt = tbin.bin_gaussians(*(ts[k] for k in names[:3]), rx=ts["rx"],
+                                    ry=ts["ry"], m_cap=m_cap, align=16,
+                                    pad_cap=pad_cap, presort_tables=True,
+                                    **kw)
+        else:
+            bt = tbin.expand_slab(*(ts[k] for k in names), row_base=0,
+                                  slab_base_entry=0, sentinel_row=220,
+                                  m_slab=m_cap, **kw)
+    total = int(bt.num_pairs if form == "bin_gaussians" else bt.total)
+    assert total >= 200 * n_tiles >= 100 * limit
+    assert int(bt.overflow) > 0
+    assert seen.longest <= limit, (seen.longest, limit)
+    ja = {k: jnp.asarray(v) for k, v in arrs.items()}
+    if form == "bin_gaussians":
+        bj = jbin.bin_gaussians(*(ja[k] for k in names[:3]), rx=ja["rx"],
+                                ry=ja["ry"], m_cap=m_cap, align=16,
+                                pad_cap=pad_cap, sort_gaussians=True, **kw)
+        _counts(bj, bt)
+    else:
+        sj = jbin.expand_slab(*(ja[k] for k in names), row_base=0,
+                              slab_base_entry=0, sentinel_row=220,
+                              m_slab=m_cap, **kw)
+        for k in SLAB_FIELDS:
+            np.testing.assert_array_equal(getattr(bt, k).numpy(),
+                                          np.asarray(getattr(sj, k)),
+                                          err_msg=k)
+
+
+@pytest.mark.parametrize("slack", [0, 1, 997])
+def test_static_slots_match_jax_exactly_at_the_capacity(rng, slack):
+    """The pair capacity exactly the frame's pairs (no dead slot), one
+    more, and far more: every output of ``bin_gaussians`` with its presort
+    tables, and of ``expand_slab``, equals JAX's bit for bit."""
+    th, tw, chunk, W, H = SMALL
+    pre = _pre(rng, n=300, W=W, H=H, cap=320)
+    arrs = {k: np.asarray(getattr(pre, k)) for k in
+            ("mean2d", "depth", "radius", "rx", "ry")}
+    kw = dict(image_width=W, image_height=H, tile_h=th, tile_w=tw)
+    probe = _port_binning(arrs, m_cap=1, align=chunk, **kw)
+    m_cap = int(probe.num_pairs) + slack
+    bj, bt, _ = _both(pre, m_cap=m_cap, align=chunk, **kw)
+    assert int(bj.overflow) == 0
+    _counts(bj, bt)
+    bt = _port_binning(arrs, m_cap=m_cap, align=chunk, presort_tables=True,
+                       **kw)
+    for k in ("gidx_sorted", "tile_start", "tile_count", "inv_src"):
+        np.testing.assert_array_equal(getattr(bt, k).numpy(),
+                                      np.asarray(getattr(bj, k)), err_msg=k)
+    names = ("mean2d", "depth", "radius", "rx", "ry")
+    common = dict(row_base=0, slab_base_entry=0, sentinel_row=320,
+                  m_slab=m_cap, **kw)
+    st = tbin.expand_slab(*(torch.tensor(arrs[k]) for k in names), **common)
+    sj = jbin.expand_slab(*(jnp.asarray(arrs[k]) for k in names), **common)
+    for k in SLAB_FIELDS:
+        np.testing.assert_array_equal(getattr(st, k).numpy(),
+                                      np.asarray(getattr(sj, k)), err_msg=k)

@@ -1,8 +1,9 @@
 """The port's import boundary and device contract.
 
-gsplat_tpu_torch and chip_smoke.py import neither JAX nor anything of the
-gsplat_tpu package, and the port's entry points run on CUDA unless the
-caller asks for the CPU: without CUDA they raise instead of carrying on.
+gsplat_tpu_torch, chip_smoke.py and the A/B scripts (compositor_ab.py,
+ssim_ab.py) import neither JAX nor anything of the gsplat_tpu package, and
+the port's entry points run on CUDA unless the caller asks for the CPU:
+without CUDA they raise instead of carrying on.
 """
 import json
 import os
@@ -22,7 +23,7 @@ names = [m.name for m in pkgutil.walk_packages(gsplat_tpu_torch.__path__,
                                                "gsplat_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
-import chip_smoke
+import chip_smoke, compositor_ab, ssim_ab
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "gsplat_tpu"
              or m.startswith("gsplat_tpu."))

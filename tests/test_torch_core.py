@@ -77,3 +77,44 @@ def test_camera_view_create_matches_jax(rng):
         got = getattr(ct, k)
         got = got if isinstance(got, int) else t2n(got)
         np.testing.assert_allclose(got, want[k], err_msg=k, **TOL)
+
+
+def test_cfg_args_json_loads_in_both_packages(tmp_path):
+    """``cfg_args.json`` across the packages: one that JAX's save_cfg wrote
+    loads in the port (groups and fields it does not keep are skipped), and
+    one written in the same format as the port's configs give loads in JAX.
+    ``data_device`` keeps each package's own default ("tpu" in JAX, "cuda"
+    in the port) and no code of either reads it, so a model moves between
+    them unchanged."""
+    import dataclasses
+    import json
+    from gsplat_tpu import config as jcfg
+    from gsplat_tpu_torch import config as tcfg
+
+    jdir, tdir = tmp_path / "jax", tmp_path / "port"
+    jcfg.save_cfg(str(jdir), {
+        "model": jcfg.ModelConfig(sh_degree=2, model_path=str(jdir)),
+        "pipeline": jcfg.PipelineConfig(antialiasing=True),
+        "optimization": jcfg.OptimizationConfig(iterations=7),
+        "rasterizer": jcfg.RasterizerConfig(tile_h=16, chunk=32)})
+    got = tcfg.load_cfg(str(jdir))
+    assert got["model"].data_device == "tpu" and got["model"].sh_degree == 2
+    assert got["pipeline"].antialiasing and got["optimization"].iterations == 7
+    assert (got["rasterizer"].tile_h, got["rasterizer"].chunk) == (16, 32)
+
+    cfgs = {"model": tcfg.ModelConfig(sh_degree=1, model_path=str(tdir)),
+            "pipeline": tcfg.PipelineConfig(),
+            "optimization": tcfg.OptimizationConfig(lambda_dssim=0.3),
+            "rasterizer": tcfg.RasterizerConfig(tile_w=64)}
+    assert cfgs["model"].data_device == "cuda"
+    tdir.mkdir()
+    (tdir / "cfg_args.json").write_text(json.dumps(
+        {k: dataclasses.asdict(v) for k, v in cfgs.items()}, indent=2))
+    back = jcfg.load_cfg(str(tdir))
+    assert back["model"].data_device == "cuda" and back["model"].sh_degree == 1
+    assert back["optimization"].lambda_dssim == 0.3
+    assert back["rasterizer"].tile_w == 64
+    for k, v in cfgs.items():
+        mine = dataclasses.asdict(v)
+        theirs = dataclasses.asdict(back[k])
+        assert {f: theirs[f] for f in mine} == mine, k

@@ -2,7 +2,8 @@
 compiler is: each ``csrc/*.cu`` goes through ``g++ -fsyntax-only`` with a
 small header that declares what CUDA provides (qualifiers, thread indices,
 vector types, the intrinsics the kernels use) and with the ``<<<...>>>``
-launch configurations removed. It catches typos, undeclared names and type
+launch configurations removed (``extern __shared__`` arrays, sized at
+launch, read as plain ``extern`` declarations). It catches typos, undeclared names and type
 errors before a run on the card; it does not compile device code. Skips
 where no g++ is installed."""
 import pathlib
@@ -22,8 +23,10 @@ using std::max;
 using std::min;
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
+#define __align__(n) __attribute__((aligned(n)))
 #define __shared__ static
 struct dim3 {
   unsigned x, y, z;
@@ -35,6 +38,9 @@ struct float4 { float x, y, z, w; };
 typedef struct CUstream_st* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 cudaError_t cudaGetLastError();
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class T>
+cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int);
 float __fmul_rn(float, float);
 float __fadd_rn(float, float);
 float __fsub_rn(float, float);
@@ -65,7 +71,7 @@ def test_cuda_source_parses(name, tmp_path):
         pytest.skip("no g++ to read the CUDA sources with")
     (tmp_path / "cuda_runtime.h").write_text(SHIM)
     src = re.sub(r"<<<.*?>>>", "", (CSRC / f"{name}.cu").read_text(),
-                 flags=re.S)
+                 flags=re.S).replace("extern __shared__", "extern")
     host = tmp_path / f"{name}.cpp"
     host.write_text(src)
     out = subprocess.run(

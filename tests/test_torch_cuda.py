@@ -5,7 +5,10 @@ version on the same inputs:
 - the compositor backward against autograd through the plain compositor,
   and the SSIM backward against autograd through the plain SSIM: rtol 5e-3
   / atol 1e-6 and rtol 2e-4 / atol 1e-6 (the JAX suite's gates);
-- the SSIM map: rtol 1e-5 / atol 1e-6;
+- the SSIM map: rtol 1e-5 / atol 1e-6, the same bits with and without the
+  partial maps its launch can write, which are held to
+  ``ssim_partials_plain`` at that gate; the backward (one launch from the
+  partial maps) also against ``ssim_bwd_plain``, on ragged tiles too;
 - the slab transmittance: rtol 1e-5 / atol 1e-6 against its plain version
   and against the compositor kernel's cut-free t_final;
 - the compositor with ``t_init`` and ``tile_id_base`` and its backward from
@@ -462,11 +465,12 @@ def test_sharded_renders_on_card_match_cpu(cuda_device):
         assert float(g_g["xyz"].abs().max()) > 0
 
 
-def _images(device, shape=(3, 100, 130), seed=2):
+def _images(device, shape=(3, 100, 130), seed=2, patch=True):
     rng = np.random.default_rng(seed)
     a = rng.uniform(0, 1, shape).astype(np.float32)
     b = np.clip(a + 0.1 * rng.standard_normal(shape), 0, 1).astype(np.float32)
-    a[:, 10:40, 20:60] = 0.0               # constant: the variance clamp
+    if patch:
+        a[:, 10:40, 20:60] = 0.0           # constant: the variance clamp
     w = rng.uniform(0, 1, shape).astype(np.float32)
     return [torch.tensor(x, device=device) for x in (a, b, w)]
 
@@ -474,8 +478,13 @@ def _images(device, shape=(3, 100, 130), seed=2):
 def test_ssim_kernels_match_plain(cuda_device):
     a, b, w = _images(cuda_device)
     before = (kssim.ssim_fwd_cuda.launches, kssim.ssim_bwd_cuda.launches)
-    torch.testing.assert_close(kssim.ssim_fwd_cuda(a, b), tssim.ssim_map(a, b),
-                               rtol=1e-5, atol=1e-6)
+    m = kssim.ssim_fwd_cuda(a, b)
+    torch.testing.assert_close(m, tssim.ssim_map(a, b), rtol=1e-5, atol=1e-6)
+    # the same launch writes the partial maps: the map keeps its bits
+    m2, p = kssim.ssim_fwd_cuda(a, b, partials=True)
+    assert torch.equal(m, m2)
+    torch.testing.assert_close(p, kssim.ssim_partials_plain(a, b), rtol=1e-5,
+                               atol=1e-6)
     # the mean's cotangent, and a non-uniform one at 1e-2 of unit size:
     # d img1 sums terms that cancel, whose float32 rounding is ~1e-7 of
     # their size in autograd as in the kernel, and at unit size that alone
@@ -483,20 +492,53 @@ def test_ssim_kernels_match_plain(cuda_device):
     for cot in (torch.full_like(a, 1.0 / a.numel()), 1e-2 * w):
         x = a.clone().requires_grad_()
         (tssim.ssim_map(x, b) * cot).sum().backward()
-        torch.testing.assert_close(kssim.ssim_bwd_cuda(a, b, cot), x.grad,
+        got = kssim.ssim_bwd_cuda(a, b, cot, p)
+        torch.testing.assert_close(got, x.grad, **SSIM_GRAD_TOL)
+        torch.testing.assert_close(got, kssim.ssim_bwd_plain(a, b, cot, p),
                                    **SSIM_GRAD_TOL)
+        assert torch.equal(got, kssim.ssim_bwd_cuda(a, b, cot, p))
     torch.cuda.synchronize()
     assert (kssim.ssim_fwd_cuda.launches, kssim.ssim_bwd_cuda.launches) == (
-        before[0] + 1, before[1] + 4)
-    # through autograd: fast_ssim on the card runs both kernels
+        before[0] + 2, before[1] + 4)
+    # through autograd: fast_ssim on the card runs both kernels, one launch
+    # each
     x = a.clone().requires_grad_()
+    before = (kssim.ssim_fwd_cuda.launches, kssim.ssim_bwd_cuda.launches)
     v = tssim.fast_ssim(x, b)
     v.backward()
+    assert (kssim.ssim_fwd_cuda.launches, kssim.ssim_bwd_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
     y = a.clone().requires_grad_()
     tssim.ssim(y, b).backward()
     torch.testing.assert_close(v.detach(), tssim.ssim(a, b), rtol=1e-5,
                                atol=1e-6)
     torch.testing.assert_close(x.grad, y.grad, **SSIM_GRAD_TOL)
+    with torch.no_grad():                       # no partial maps, same map
+        torch.testing.assert_close(tssim.fast_ssim(a, b), v.detach(),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 33, 65), (3, 70, 200),
+                                   (1, 150, 31), (2, 40, 64, "offset")])
+def test_ssim_kernels_on_ragged_tiles(cuda_device, shape):
+    """Images that are no whole number of 32x64 tiles, and smaller than
+    the halo: the map, partial maps and gradient against the plain ones.
+    Rows of a multiple of 4 floats on 16-byte aligned tensors take the
+    16-byte staging, the others (and a tensor 4 bytes into its storage)
+    the staging float by float."""
+    a, b, w = _images(cuda_device, shape=shape[:3], patch=False)
+    if len(shape) == 4:                  # the same values, 4 bytes along
+        a, b, w = (torch.empty(x.numel() + 1, device=cuda_device)[1:]
+                   .view_as(x).copy_(x) for x in (a, b, w))
+        assert a.data_ptr() % 16 == 4
+    m, p = kssim.ssim_fwd_cuda(a, b, partials=True)
+    torch.testing.assert_close(m, tssim.ssim_map(a, b), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(p, kssim.ssim_partials_plain(a, b), rtol=1e-5,
+                               atol=1e-6)
+    x = a.clone().requires_grad_()
+    (tssim.ssim_map(x, b) * 1e-2 * w).sum().backward()
+    torch.testing.assert_close(kssim.ssim_bwd_cuda(a, b, 1e-2 * w, p),
+                               x.grad, **SSIM_GRAD_TOL)
 
 
 def test_train_step_on_card_matches_cpu(cuda_device):

@@ -9,7 +9,13 @@ uniform cotangent and a non-uniform one.
 At a pixel whose variance is exactly 0 (a constant window), the port's
 clamp passes no gradient, as the fused kernels' mask [v > 0] does; JAX's
 XLA form (``jnp.maximum``) passes half. That case is held to the fused
-kernel."""
+kernel.
+
+The CUDA kernels' split of the backward, in plain PyTorch: the partial
+maps p of ``ssim_partials_plain`` and ``ssim_bwd_plain`` from g·p give the
+VJP of JAX's fused kernel and autograd through the port's ``ssim_map``,
+within the gradient gate, under both cotangents, with and without
+zero-variance patches."""
 import numpy as np
 import pytest
 import torch
@@ -47,6 +53,12 @@ def _jax_fused(a, b, wts):
     return (jnp.mean(ssim_map_fused(a, b, _ST)), ssim_map_fused(a, b, _ST),
             jax.grad(lambda x: jnp.mean(ssim_map_fused(x, b, _ST)))(a),
             jax.grad(lambda x: jnp.sum(ssim_map_fused(x, b, _ST) * wts))(a))
+
+
+@jax.jit
+def _jax_fused_vjp(a, b, cot):
+    """The Pallas fused kernel's VJP (interpret mode) for img1 under cot."""
+    return jax.vjp(lambda x: ssim_map_fused(x, b, _ST), a)[1](cot)[0]
 
 
 def _images(rng, zero_patch=False):
@@ -99,6 +111,35 @@ def test_variance_clamp_matches_fused_kernel(rng):
     assert int((v == 0).sum()) > 100                  # the clamp is hit
     got = _port(a, b, wts, tssim.ssim_map)
     _assert_four(got, _jax_fused(*map(jnp.asarray, (a, b, wts))))
+
+
+@pytest.mark.parametrize("zero_patch", [False, True],
+                         ids=["random", "zero-variance"])
+@pytest.mark.parametrize("cot", ["uniform", "weighted"])
+def test_plain_partials_and_backward_match_jax_vjp_and_autograd(
+        rng, cot, zero_patch):
+    a, b, wts = _images(rng, zero_patch=zero_patch)
+    # the non-uniform cotangent at 1e-2 of unit size, as on the card
+    # (tests/test_torch_cuda.py): d img1 sums terms that cancel, and the
+    # float32 rounding of two orders of the same sum (g·p here, g·b/(cd) in
+    # JAX) differs by ~1e-7 of their unit size, past the gate's atol
+    g = np.full(SHAPE, 1.0 / a.size, np.float32) if cot == "uniform" \
+        else 1e-2 * wts
+    at, bt, gt = torch.tensor(a), torch.tensor(b), torch.tensor(g)
+    p = kssim.ssim_partials_plain(at, bt)
+    assert tuple(p.shape) == (3,) + SHAPE
+    if zero_patch:                   # the clamp's mask zeroes p_x2 there
+        assert int((p[1] == 0).sum()) > 100
+    got = t2n(kssim.ssim_bwd_plain(at, bt, gt, p))
+    x = at.clone().requires_grad_()
+    (tssim.ssim_map(x, bt) * gt).sum().backward()
+    np.testing.assert_allclose(got, t2n(x.grad), **GRAD_TOL)
+    want = _jax_fused_vjp(*map(jnp.asarray, (a, b, g)))
+    np.testing.assert_allclose(got, np.asarray(want), **GRAD_TOL)
+    # the map is linear in g: the cotangent's scale passes straight through
+    np.testing.assert_allclose(
+        t2n(kssim.ssim_bwd_plain(at, bt, 4 * gt, p)), 4 * got, rtol=1e-6,
+        atol=0)
 
 
 def test_fast_ssim_treats_img2_as_constant(rng):
