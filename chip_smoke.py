@@ -10,31 +10,34 @@ Phases, each printing its own line:
 3. kernel vs plain: the compositor kernel against its plain PyTorch version
    on the card, on the entries of the phase-4 frame, with the tiles' entry
    counts, the gate that the rectangle and warp mask the kernels stage for
-   every entry row equal the plain formula's and, on 16 tiles, the gate
-   that no pair passing the alpha test lies outside its cull rectangle
-   (the device's and the plain one) and the shares of evaluations, rows
-   and warps the rectangle keeps; the kernel's bound charges operations to
-   the contributing (entry, pixel) pairs, counted over the whole frame;
-   then a small render on
-   the card against the same render on the CPU, and the kernels' path for
-   tiles whose width is not 32 (8x128 and 16x16 tiles on the small frame,
-   forward and backward);
+   every entry row equal the plain formula's and, in one plain walk of
+   every tile (``pair_walk``), the gate that no pair passing the alpha test
+   lies outside its cull rectangle (the device's and the plain one), the
+   shares of evaluations, rows and warps the rectangle keeps, and the
+   contributing (entry, pixel) pairs the kernel's bound charges operations
+   to; then a small render on the card against the same render on the
+   CPU, and the kernels' path for tiles whose width is not 32 (8x128 and
+   16x16 tiles on the small frame: compositor forward and backward, slab
+   transmittance, the rectangle walk);
 3b. the training kernels against their plain versions on the card: the
    compositor backward (on 16 tiles of the phase-5 frame) against autograd
-   through the plain compositor, with the same rectangle gate and shares
-   on the training frame, the SSIM map (the same bits with and without
+   through the plain compositor, with the same rectangle walk of every
+   tile of the training frame, the SSIM map (the same bits with and without
    the partial maps its launch writes for the backward), the partial maps
    and the one-launch backward at 3x1920x1080 against the plain SSIM,
    with the pair's time and bound per step; each kernel timed by CUDA
    events;
 3c. the depth-slab and tile-band forms of the kernels against their plain
-   versions, on the phase-5 frame's entries split into 4 depth slabs: the
-   compositor with a random ``t_init``, with slab 2's real arriving
-   transmittance, and with the ``tile_id_base`` of band 1 of 2; the slab
-   transmittance against its plain version and against the compositor's
-   cut-free t_final; the compositor backward on 16 tiles of slab 1 from
-   its ``t_init`` forward under non-zero cotangents of accum and t_final,
-   and again with a ``tile_id_base``;
+   versions, on the phase-5 frame's entries split into 4 depth slabs, with
+   the rectangle walk of every tile of each slab: the slab transmittance
+   against its plain version and the compositor's cut-free t_final (bit
+   for bit), with the share of pixels whose T is exactly 0 and its bound
+   on the 3 slabs pass 1 runs on, charged to the pairs that pass the alpha
+   test; the compositor with a random ``t_init``, with each slab's real
+   arriving transmittance, and with the ``tile_id_base`` of band 1 of 2;
+   the compositor backward on 16 tiles of slab 1 from its ``t_init``
+   forward under non-zero cotangents of accum and t_final, and again with
+   a ``tile_id_base``;
 3d. the blocked prefix sum against a float64 cumsum at the number of rows
    one shard's backward of phase 7 gives it (held to twice the error of
    ``torch.cumsum`` in f32), against its plain version bit for bit on
@@ -261,28 +264,13 @@ def bound(n_bytes, ops):
                 bound_by="operations" if o_ms >= b_ms else "bytes")
 
 
-def contributing_pairs(entries, tile_start, tile_count, n_contrib, geo):
-    """The (entry, pixel) pairs of a launch that contribute: below the
-    pixel's n_contrib and past the alpha test, counted over every tile with
-    the plain alpha. The work no compositor can avoid."""
-    walk = _TileWalk(entries, tile_start, tile_count,
-                     **{k: v for k, v in geo.items() if k != "t_eps"})
-    hits = 0
-    with torch.no_grad():
-        for j in range(walk.n_steps):
-            idx, rank, _, a1 = walk.step(j)
-            below = rank[None, :, None] < n_contrib[idx][:, None, :]
-            hits += int(((a1 > 0) & below).sum())
-    return hits
-
-
 def fwd_work(tile_count, n_contrib, has_t_init=False):
     """What one compositor forward launch moves and walks, as (rows, evals,
     bytes): bytes = the entry rows in tile ranges (columns 0-9) + tile
     tables + outputs (+ t_init); evals = the (entry, pixel) pairs up to each
     pixel's last contributor, which a kernel that culls nothing evaluates.
     The bound charges operations to the contributing pairs among them only
-    (``contributing_pairs``)."""
+    (``pair_walk``'s ``hits``)."""
     T, P = n_contrib.shape
     rows = int(tile_count.long().sum())
     return (rows, int(n_contrib.long().sum()),
@@ -380,53 +368,75 @@ def device_cull_rects(label, entries, tile_start, tile_count, geo):
     return got
 
 
-def cull_stats(label, entries, tile_start, tc, n_contrib, geo, rects):
-    """What the cull rectangle does on the tiles ``tc`` keeps, against the
-    plain alpha test: the gate that no pair passing the test lies outside
-    its rectangle, by the device's own rectangles ``rects``
-    (``device_cull_rects``) and by the plain formula, and the shares that
-    size the kernels' design. Evaluations are the (entry, pixel) pairs below
-    the pixel's n_contrib; a row is 32 pixels of one tile row, a warp 4
-    consecutive rows (the kernels' layout) or rows 8 apart (the layout the
-    forward had)."""
-    walk = _TileWalk(entries, tile_start, tc,
+def pair_walk(label, entries, tile_start, tile_count, geo, rects,
+              n_contrib=None):
+    """One plain walk of every tile of a launch's tables, with the plain
+    alpha (``_TileWalk``): the gate that no pair passing the alpha test lies
+    outside its cull rectangle, by the device's own rectangles ``rects``
+    (``device_cull_rects``) and by the plain formula, and the counts the
+    bounds and the kernels' design read. ``live``: the (entry, pixel) pairs
+    that pass the alpha test, what slab_tmit cannot skip. With
+    ``n_contrib``: ``evals``, the pairs below the pixel's n_contrib (what a
+    compositor that culls nothing evaluates), ``hits``, the live ones among
+    them (what no compositor can skip), ``inside``, those inside the
+    rectangle. On 32x32 tiles: ``rows``, the (entry, row) pairs the
+    rectangle keeps (a row is 32 pixels of one tile row), ``rows_live``
+    those with a pixel below n_contrib, ``lanes`` the pixels of the kept
+    rows inside it, ``warps`` the (entry, warp) pairs it keeps with a warp
+    on 4 consecutive rows (the kernels' layout), ``warps_spread`` with a
+    warp's rows 8 apart (pixel = thread + 256 k)."""
+    walk = _TileWalk(entries, tile_start, tile_count,
                      **{k: v for k, v in geo.items() if k != "t_eps"})
-    n = dict(evals=0, hits=0, inside=0, outside_live=0, entries=0, rows=0,
-             rows_live=0, warps=0, warps_spread=0, lanes=0)
+    n = dict.fromkeys(("entries", "live", "outside_live", "evals", "hits",
+                       "inside", "rows", "rows_live", "lanes", "warps",
+                       "warps_spread"), 0)
+    rows32 = walk.tile_w == 32 and walk.tile_h == 32
     with torch.no_grad():
         for j in range(walk.n_steps):
             idx, rank, data, a1 = walk.step(j)
             live = a1 > 0
             inside = walk.inside(idx, data)
             valid = (rank[None, :] < walk.count[idx, None])[..., None]
-            below = rank[None, :, None] < n_contrib[idx][:, None, :]
             r = rects[(walk.start[idx, None] + rank[None, :]).clamp(
                 max=rects.shape[0] - 1)].long()[..., None]    # (L,G,5,1)
             on_device = ((walk.pxl >= r[:, :, 0]) & (walk.pxl <= r[:, :, 1])
                          & (walk.pyl >= r[:, :, 2]) & (walk.pyl <= r[:, :, 3]))
             n["outside_live"] += int((live & ~inside).sum())
             n["outside_live"] += int((live & ~on_device).sum())
-            n["evals"] += int(below.sum())
-            n["hits"] += int((live & below).sum())
-            n["inside"] += int((inside & below).sum())
+            n["live"] += int(live.sum())
             n["entries"] += int(valid.sum())
-            if walk.tile_w == 32 and walk.tile_h == 32:
+            if n_contrib is not None:
+                below = rank[None, :, None] < n_contrib[idx][:, None, :]
+                n["evals"] += int(below.sum())
+                n["hits"] += int((live & below).sum())
+                n["inside"] += int((inside & below).sum())
+            if rows32:
                 L, G = inside.shape[:2]
-                rows = (inside & valid).view(L, G, 32, 32).any(-1)
+                kept = inside & valid
+                rows = kept.view(L, G, 32, 32).any(-1)
                 n["rows"] += int(rows.sum())
-                n["lanes"] += int((inside & valid).sum())
-                n["rows_live"] += int(
-                    (inside & below).view(L, G, 32, 32).any(-1).sum())
+                n["lanes"] += int(kept.sum())
+                if n_contrib is not None:
+                    n["rows_live"] += int(
+                        (inside & below).view(L, G, 32, 32).any(-1).sum())
                 n["warps"] += int(rows.view(L, G, 8, 4).any(-1).sum())
                 n["warps_spread"] += int(rows.view(L, G, 4, 8).any(-2).sum())
     check(n["outside_live"] == 0, f"cull rectangle ({label}): "
           f"{n['outside_live']} pairs that pass the alpha test lie outside it")
+    return n
+
+
+def walk_line(label, n):
+    """The line of one ``pair_walk`` (or of several summed): the gate held
+    and the shares that size the kernels' design."""
     ent = max(n["entries"], 1)
-    line = (f"cull rectangle ({label}) on {N_CHECK_TILES} tiles, "
-            f"{n['entries']} entries: conservative (0 live pairs outside); "
-            f"of {n['evals']} evaluations below n_contrib "
-            f"{n['hits'] / max(n['evals'], 1):.3f} contribute and "
-            f"{n['inside'] / max(n['evals'], 1):.3f} lie inside")
+    line = (f"cull rectangle ({label}) on every tile, {n['entries']} entries: "
+            f"conservative (0 of {n['live']} pairs that pass the alpha test "
+            f"outside the device's or the plain rectangle)")
+    if n["evals"]:
+        line += (f"; of {n['evals']} evaluations below n_contrib "
+                 f"{n['hits'] / n['evals']:.3f} contribute and "
+                 f"{n['inside'] / n['evals']:.3f} lie inside")
     if n["rows"]:
         line += (f"; the rectangle keeps {n['rows'] / (ent * 32):.3f} of "
                  f"(entry, row) pairs ({n['rows_live'] / (ent * 32):.3f} "
@@ -435,7 +445,7 @@ def cull_stats(label, entries, tile_start, tc, n_contrib, geo, rects):
                  f"{n['warps'] / (ent * 8):.3f} of (entry, warp) pairs with a "
                  f"warp on 4 consecutive rows, {n['warps_spread'] / (ent * 8):.3f} "
                  f"with its rows 8 apart")
-    print(line, flush=True)
+    return line
 
 
 def bwd_vs_plain(label, entries, tile_start, tc, ga, gt, geo, fwd_kw,
@@ -478,8 +488,10 @@ def bwd_vs_plain(label, entries, tile_start, tc, ga, gt, geo, fwd_kw,
 def check_general_tiles(g, cam, rng):
     """The kernels' path for tiles whose width is not 32 (the rectangle
     tested per pixel), on the card: a small frame on 8x128 and 16x16 tiles,
-    the forward against the plain compositor and the backward on 16 tiles
-    against autograd through it."""
+    the forward against the plain compositor, the backward on 16 tiles
+    against autograd through it, the slab transmittance against its plain
+    version and the cut-free forward's t_final, and the rectangle walk of
+    every tile."""
     for th, tw, chunk in ((8, 128, 16), (16, 16, 16)):
         cfg = RasterizerConfig(tile_h=th, tile_w=tw, chunk=chunk,
                                pairs_per_gaussian=24.0)
@@ -504,16 +516,32 @@ def check_general_tiles(g, cam, rng):
         tc = pick_tiles(b.tile_count, rng)
         bwd_vs_plain(f"{th}x{tw} tiles", e.entries, b.tile_start, tc, ga, gt,
                      geo, fwd_kw)
+        tmit_kw = dict(geo, chunk=chunk)
+        with torch.no_grad():
+            tmit = slab_transmittance_cuda(*args, **tmit_kw)
+            torch.cuda.synchronize()
+            want = slab_transmittance_plain(*args, **tmit_kw)
+            cutfree = composite_fwd_cuda(*args, **tmit_kw, t_eps=0.0).t_final
+        tmit_err = float((tmit - want).abs().max())
+        check(torch.allclose(tmit, want, **SLAB_TOL), f"slab_tmit on {th}x{tw} "
+              f"tiles disagrees with its plain version (max {tmit_err})")
+        check(torch.equal(tmit, cutfree), f"slab_tmit on {th}x{tw} tiles is "
+              f"not the cut-free composite's t_final bit for bit")
+        print(f"kernel vs plain: slab_tmit on {th}x{tw} tiles: max_abs_err "
+              f"{tmit_err:.3e}, composite_fwd(t_eps=0).t_final bit for bit",
+              flush=True)
         rects = device_cull_rects(f"{th}x{tw} tiles", e.entries,
                                   b.tile_start, b.tile_count, geo)
-        cull_stats(f"{th}x{tw} tiles", e.entries, b.tile_start, tc,
-                   kern.n_contrib, dict(geo, chunk=chunk), rects)
+        print(walk_line(f"{th}x{tw} tiles", pair_walk(
+            f"{th}x{tw} tiles", *args, tmit_kw, rects, kern.n_contrib)),
+            flush=True)
 
 
 def check_composite_bwd(g, cam, cfg, rng):
     """The compositor backward kernel against autograd through the plain
     compositor on the card, on 16 tiles of the training frame under
-    numpy-seeded random cotangents. Kernel time on the full frame."""
+    numpy-seeded random cotangents. Kernel time, the rectangle walk and
+    the bound on the full frame."""
     with torch.no_grad():
         e = rasterize.build_entries(g, cam, W, H, cfg)
     b = e.binning
@@ -536,17 +564,19 @@ def check_composite_bwd(g, cam, cfg, rng):
         kern_ms = median_ms(lambda: composite_bwd_cuda(*args, **geo), 20)
     rows, evals, n_bytes = bwd_work(e.entries.shape[0], b.tile_count,
                                     full.n_contrib)
-    hits = contributing_pairs(e.entries, b.tile_start, b.tile_count,
-                              full.n_contrib, dict(geo, chunk=cfg.chunk))
-    bnd = bound(n_bytes, hits * OPS_PER_EVAL_BWD)
     tc = pick_tiles(b.tile_count, rng)
     err, _, plain_ms = bwd_vs_plain("training frame", e.entries, b.tile_start,
                                     tc, ga, gt, geo, fwd_kw)
     tile_lengths("training frame", b.tile_count)
+    # the walk of every tile of the training frame: the compositor's bound
+    # and, for the slab paths of phase 3c, the whole frame's rectangle gate
     rects = device_cull_rects("training frame", e.entries, b.tile_start,
                               b.tile_count, geo)
-    cull_stats("training frame", e.entries, b.tile_start, tc, full.n_contrib,
-               dict(geo, chunk=cfg.chunk), rects)
+    walk = pair_walk("training frame", e.entries, b.tile_start, b.tile_count,
+                     dict(geo, chunk=cfg.chunk), rects, full.n_contrib)
+    print(walk_line("training frame", walk), flush=True)
+    hits = walk["hits"]
+    bnd = bound(n_bytes, hits * OPS_PER_EVAL_BWD)
     print(f"composite_bwd on the full frame: kernel {kern_ms:.3f} ms, entry "
           f"buffer {e.entries.shape[0]} rows, {int(b.num_pairs)} pairs, rows "
           f"read {rows}, contributing pairs {hits} of {evals} below "
@@ -712,33 +742,38 @@ def check_slab_kernels(g, cam, cfg, rng):
             check(torch.allclose(got, want, **SLAB_TOL),
                   f"slab_tmit disagrees with its plain version (max "
                   f"{tmit_err})")
-            # the unchanged slab_tmit.cu culls nothing: equal bits show that
-            # the compositor's cull rectangle dropped no pair on this frame
+            # both kernels cull with one rectangle: equal bits show that
+            # they multiply the same products in the same order; that the
+            # rectangle drops no pair passing the alpha test is the walk's
+            # gate (every tile of the frame in phase 3b, of each slab below)
             check(torch.equal(got, cutfree),
                   f"slab_tmit is not the cut-free composite's t_final bit "
                   f"for bit (max {cut_err})")
+            check(torch.equal(got, slab_transmittance_cuda(*args, **tmit_kw)),
+                  "slab_tmit: two launches on one input differ")
             tmit_ms.append(median_ms(
                 lambda: slab_transmittance_cuda(*args, **tmit_kw), 20))
             tmit_plain_ms.append(median_ms(
                 lambda: slab_transmittance_plain(*args, **tmit_kw), 3))
             t_nocut.append(got)
-        check(bool((t_nocut[0][slabs[0].binning.tile_count == 0] == 1).all()),
-              "slab_tmit: an empty tile is not 1")
-    # every (pair, pixel) is evaluated: nothing ends early
-    tmit_rows = sum(pairs)
-    tmit_bound = bound(tmit_rows * 24 + N_SLABS * (T * 8 + T * P * 4),
-                       tmit_rows * P * OPS_PER_EVAL_TMIT)
+        for t, (_, _, tc) in zip(t_nocut, tabs + [full]):
+            check(bool((t[tc == 0] == 1).all()),
+                  "slab_tmit: an empty tile is not 1")
+    # the shares of pixels and of whole tiles whose cut-free T is exactly 0:
+    # what a block exit once all its pixels reach 0 could skip
+    zero = [float((t == 0).float().mean()) for t in t_nocut]
+    zero_tiles = [float((t == 0).all(dim=1).float().mean()) for t in t_nocut]
     print(f"kernel vs plain: slab_tmit on {N_SLABS} slabs (pairs {pairs}, "
           f"m_cap {m_cap}) and the whole frame: max_abs_err {tmit_err:.3e}, "
-          f"vs composite_fwd(t_eps=0).t_final {cut_err:.3e}; kernel ms per "
-          f"slab {[round(x, 3) for x in tmit_ms[:-1]]} (sum "
-          f"{sum(tmit_ms[:-1]):.3f}), whole frame {tmit_ms[-1]:.3f}; plain "
-          f"ms per slab {[round(x, 1) for x in tmit_plain_ms[:-1]]}; bound "
-          f"of the {N_SLABS} launches {tmit_bound['bound_ms']:.4f} ms "
-          f"({tmit_bound['bound_by']})", flush=True)
-    numbers = {"slab_tmit": dict(
-        max_abs_err=tmit_err, ms=sum(tmit_ms[:-1]),
-        plain_ms=sum(tmit_plain_ms[:-1]), **tmit_bound)}
+          f"vs composite_fwd(t_eps=0).t_final {cut_err:.3e}, the same bits "
+          f"twice; kernel ms per slab {[round(x, 4) for x in tmit_ms[:-1]]} "
+          f"(sum over the {N_SLABS - 1} slabs pass 1 runs on "
+          f"{sum(tmit_ms[:N_SLABS - 1]):.4f}), whole frame {tmit_ms[-1]:.4f}; "
+          f"plain ms per slab {[round(x, 1) for x in tmit_plain_ms[:-1]]}; "
+          f"share of the tile grid's pixels whose T is exactly 0, per slab "
+          f"{[round(z, 6) for z in zero[:-1]]}, whole frame {zero[-1]:.6f}; "
+          f"of its tiles with every pixel 0 {[round(z, 6) for z in zero_tiles]}",
+          flush=True)
 
     # ---- composite_fwd with t_init: a random one on the whole frame, then
     # every slab with the transmittance that really arrives at it
@@ -759,7 +794,7 @@ def check_slab_kernels(g, cam, cfg, rng):
           "slab 1 is not slab 0's transmittance")
     fwd_err, fwd_mis, fwd_ms, fwd_plain_ms = err, mismatch, [], []
     rows = evals = n_bytes = 0
-    slab_outs, slab_hits = [], []
+    slab_outs, walks = [], []
     for k, args in enumerate(tabs):
         kw = dict(geo, **fwd_kw, t_init=t_arrive[k])
         kern, err, mismatch, plain_ms = fwd_vs_plain(f"slab {k}", args, kw)
@@ -772,9 +807,10 @@ def check_slab_kernels(g, cam, cfg, rng):
         rows, evals, n_bytes = (a + b for a, b in zip((rows, evals, n_bytes),
                                                       work))
         slab_outs.append(kern)
-        slab_hits.append(contributing_pairs(*args, kern.n_contrib,
-                                            dict(geo, chunk=cfg.chunk)))
-    hits = sum(slab_hits)
+        walks.append(pair_walk(f"slab {k}", *args, tmit_kw,
+                               device_cull_rects(f"slab {k}", *args, geo),
+                               kern.n_contrib))
+    hits = sum(w["hits"] for w in walks)
     fwd_bnd = bound(n_bytes, hits * OPS_PER_EVAL)
     print(f"kernel vs plain: composite_fwd with each slab's arriving "
           f"transmittance: max_abs_err {fwd_err:.3e}, n_contrib mismatch "
@@ -787,6 +823,32 @@ def check_slab_kernels(g, cam, cfg, rng):
           f"({fwd_bnd['bound_by']}; "
           f"{evals * OPS_PER_EVAL / F32_OPS_PER_S * 1e3:.4f} ms if every pair "
           f"below n_contrib were charged)", flush=True)
+    # slab_tmit's bound, on the slabs pass 1 runs on: 24 B per entry row,
+    # tables, 4 B per pixel, and the operations of the (entry, pixel) pairs
+    # that pass the alpha test, the evaluations a kernel that culls cannot
+    # skip
+    run = walks[:N_SLABS - 1]
+    tot = {key: sum(w[key] for w in run) for key in run[0]}
+    print(walk_line(f"slabs 0-{N_SLABS - 2}", tot) + f"; slab {N_SLABS - 1}: "
+          f"{walks[-1]['entries']} entries, {walks[-1]['live']} pairs pass",
+          flush=True)
+    tmit_bound = bound(
+        tot["entries"] * 24 + len(run) * (T * 8 + T * P * 4),
+        tot["live"] * OPS_PER_EVAL_TMIT)
+    all_pairs_ms = (tot["entries"] * P * OPS_PER_EVAL_TMIT / F32_OPS_PER_S
+                    * 1e3)
+    print(f"slab_tmit on the {len(run)} slabs pass 1 runs on: kernel "
+          f"{sum(tmit_ms[:len(run)]):.4f} ms, {tot['entries']} entry rows, "
+          f"{tot['live']} (entry, pixel) pairs pass the alpha test, bound "
+          f"{tmit_bound['bound_ms']:.4f} ms ({tmit_bound['bound_by']}; "
+          f"{all_pairs_ms:.4f} ms if every (entry, pixel) pair were charged)",
+          flush=True)
+    numbers = {"slab_tmit": dict(
+        max_abs_err=tmit_err, ms=sum(tmit_ms[:len(run)]),
+        plain_ms=sum(tmit_plain_ms[:len(run)]),
+        all_slabs_ms=sum(tmit_ms[:-1]), frame_ms=tmit_ms[-1],
+        all_pairs_bound_ms=all_pairs_ms, zero_share=zero,
+        zero_tile_share=zero_tiles, **tmit_bound)}
     numbers["composite_fwd"] = dict(
         t_init_max_abs_err=fwd_err, t_init_ms=sum(fwd_ms),
         t_init_plain_ms=sum(fwd_plain_ms),
@@ -862,7 +924,8 @@ def train(state, cam, gt, cfg, opt):
 PALLAS = "gsplat_tpu/ops/pallas/"
 # Every kernel of the port: its wrapper (which counts its launches), the TPU
 # kernel bodies it replaces, and its launches per training step, per slab
-# render (forward; the backward kernel in the backward), per band render and
+# render (forward; the backward kernel in the backward; the slab
+# transmittance on every slab but the farthest), per band render and
 # per sharded step (the scan in the backward of the ring and slab transients
 # only; the sharded step's loss takes the plain SSIM, as the JAX package's
 # does). The build, the launch
@@ -878,7 +941,7 @@ KERNELS = {
         replaces=["composite_stream.py:230", "composite.py:406"]),
     "slab_tmit": dict(
         wrapper=slab_transmittance_cuda, per_step=0,
-        per_slab_render=N_SLABS, per_band_render=0, per_sharded_step=0,
+        per_slab_render=N_SLABS - 1, per_band_render=0, per_sharded_step=0,
         replaces=["composite.py:326"]),
     "scan": dict(wrapper=blocked_cumsum_16_cuda, per_step=0,
                  per_slab_render=0, per_band_render=0,
@@ -1427,7 +1490,10 @@ def main():
                                                      geo)
         kern_ms = median_ms(lambda: composite_fwd_cuda(*args, **geo), 20)
     n_rows, evals, n_bytes = fwd_work(b.tile_count, kern.n_contrib)
-    hits = contributing_pairs(*args, kern.n_contrib, geo)
+    walk = pair_walk("render frame", *args, geo,
+                     device_cull_rects("render frame", *args, geo),
+                     kern.n_contrib)
+    hits = walk["hits"]
     bnd = bound(n_bytes, hits * OPS_PER_EVAL)
     print(f"kernel vs plain: composite_fwd max_abs_err {err:.3e}, "
           f"n_contrib mismatch {mismatch:.2e}, kernel {kern_ms:.3f} ms, "
@@ -1437,10 +1503,7 @@ def main():
           f"{evals * OPS_PER_EVAL / F32_OPS_PER_S * 1e3:.4f} ms if every pair "
           f"below n_contrib were charged)", flush=True)
     tile_lengths("render frame", b.tile_count)
-    cull_stats("render frame", e.entries, b.tile_start,
-               pick_tiles(b.tile_count, np.random.default_rng(SEED + 2)),
-               kern.n_contrib, geo,
-               device_cull_rects("render frame", *args, geo))
+    print(walk_line("render frame", walk), flush=True)
     del kern, e, args
 
     small = {k: v[:SMALL_N] for k, v in loaded.items()}

@@ -22,11 +22,12 @@ list, the plain version of csrc/slab_tmit.cu.
 
 ``cull_rect_plain`` is the plain version of the CUDA kernels' cull
 rectangle (csrc/composite_alpha.cuh ``cull_rect``): per entry and tile, a
-pixel rectangle outside which no pixel can pass the alpha test. The
-compositor here does not need it; ``cull=True`` masks the pairs outside it
+pixel rectangle outside which no pixel can pass the alpha test. The plain
+versions here do not need it; ``cull=True`` masks the pairs outside it
 away, which must change nothing, and is how the tests and the smoke run
-hold the rectangle to the compositor. ``cull_rects_plain`` gives it for
-every row of an entry list, with the warp mask the kernels stage beside it.
+hold the rectangle to the compositor and the slab transmittance.
+``cull_rects_plain`` gives it for every row of an entry list, with the warp
+mask the kernels stage beside it.
 
 Pixel offsets are taken in tile-local coordinates (mean minus the tile's
 origin), as the stream kernel and the CUDA kernel do: the tighter rounding.
@@ -262,17 +263,20 @@ def slab_transmittance_plain(entries: torch.Tensor, tile_start: torch.Tensor,
                              tile_count: torch.Tensor, *, n_tiles_x: int,
                              n_tiles_y: int, tile_h: int, tile_w: int,
                              chunk: int, alpha_min: float,
-                             alpha_max: float) -> torch.Tensor:
+                             alpha_max: float,
+                             cull: bool = False) -> torch.Tensor:
     """(T, P) cut-free transmittance Π(1−α) = exp Σ log1p(−α) over each
     tile's whole entry list, 1 on an empty tile: what
     ``composite_tiles_plain(t_eps=0).t_final`` is, without the compositing.
     Counterpart of gsplat_tpu/ops/pallas/composite.py
-    ``slab_transmittance_pallas``. It carries no gradient."""
+    ``slab_transmittance_pallas``. It carries no gradient. ``cull=True``
+    drops the pairs outside the entry's cull rectangle, as the kernel does;
+    the result must not change."""
     with torch.no_grad():
         walk = _TileWalk(entries, tile_start, tile_count, n_tiles_x=n_tiles_x,
                          n_tiles_y=n_tiles_y, tile_h=tile_h, tile_w=tile_w,
                          chunk=chunk, alpha_min=alpha_min,
-                         alpha_max=alpha_max)
+                         alpha_max=alpha_max, cull=cull)
         lg = torch.zeros((walk.T, walk.P), dtype=entries.dtype,
                          device=entries.device)
         for j in range(walk.n_steps):

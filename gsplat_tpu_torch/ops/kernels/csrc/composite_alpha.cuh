@@ -15,11 +15,13 @@
 // one (the sources build without fast-math).
 //
 // `cull_rect` bounds, per entry and tile, the pixels `eval_alpha` can keep:
-// a rectangle the compositor's kernels test before they evaluate a pair. It
+// a rectangle every kernel here tests before it evaluates a pair. It
 // only ever drops pairs that `eval_alpha` would reject, so a kernel that
 // uses it gives the bits of one that does not. Why it is conservative is
 // written at the function. The kernels' pixel layout and the entry row as
-// they stage it in shared memory (with its rectangle) follow it.
+// they stage it in shared memory (with its rectangle) follow it: the whole
+// row for the compositor (`stage_entry`), its geometry alone for the slab
+// transmittance (`stage_geo`), both through one `stage_geometry`.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -147,7 +149,7 @@ __device__ __forceinline__ Rect cull_rect(float mx, float my, float ca,
   return r;
 }
 
-// The compositor's pixel layout: a block of 8 warps, 4 pixels a thread;
+// The kernels' pixel layout: a block of 8 warps, 4 pixels a thread;
 // pixel slot k of lane `lane` of warp `warp` is tile pixel
 // warp * 128 + k * 32 + lane. With tile_w == 32 slot k is the 32 pixels of
 // tile row 4 * warp + k, so a test on y is one the whole warp takes
@@ -180,13 +182,52 @@ __device__ __forceinline__ int warp_mask(const Rect& r, const int* s_wy0,
   return m;
 }
 
-// An entry row as the compositor's kernels stage it in shared memory.
-struct Staged {
+// An entry row's geometry as the kernels stage it in shared memory.
+struct StagedGeo {
   float4 geo;   // mean minus tile origin (x, y), conic a, b
   float4 cut;   // conic c, opacity, the cull rectangle as x0 | x1 << 16 and
                 // y0 | y1 << 16 (integer bits)
-  float4 col;   // rgb, invdepth
   int mask;     // warp_mask of the rectangle
+};
+
+// The staged geometry of the row whose columns 0-3 are r0 and 4-5 are
+// (cc, op), with its cull rectangle on the tile at (ox, oy): the one place
+// the kernels turn a row into what they test.
+__device__ __forceinline__ StagedGeo stage_geometry(
+    float4 r0, float cc, float op, float ox, float oy, float alpha_min,
+    int tile_h, int tile_w, const int* s_wy0, const int* s_wy1) {
+  const float mx = r0.x - ox, my = r0.y - oy;
+  const Rect r = cull_rect(mx, my, r0.z, r0.w, cc, op, alpha_min, tile_h,
+                           tile_w);
+  StagedGeo e;
+  e.geo = make_float4(mx, my, r0.z, r0.w);
+  e.cut = make_float4(cc, op, __int_as_float(r.x0 | (r.x1 << 16)),
+                      __int_as_float(r.y0 | (r.y1 << 16)));
+  e.mask = warp_mask(r, s_wy0, s_wy1);
+  return e;
+}
+
+// Read columns 0-5 of one (16-float, 64-byte aligned) entry row, the first
+// 24 bytes (one 32-byte sector), and stage its geometry: what a kernel that
+// needs no colour reads.
+__device__ __forceinline__ StagedGeo stage_geo(const float* row16, float ox,
+                                               float oy, float alpha_min,
+                                               int tile_h, int tile_w,
+                                               const int* s_wy0,
+                                               const int* s_wy1) {
+  const float4* row = reinterpret_cast<const float4*>(row16);
+  const float4 r0 = row[0];
+  const float2 r1 = *reinterpret_cast<const float2*>(row + 1);
+  return stage_geometry(r0, r1.x, r1.y, ox, oy, alpha_min, tile_h, tile_w,
+                        s_wy0, s_wy1);
+}
+
+// An entry row as the compositor's kernels stage it in shared memory.
+struct Staged {
+  float4 geo;   // as StagedGeo
+  float4 cut;
+  float4 col;   // rgb, invdepth
+  int mask;
 };
 
 // Read columns 0-9 of one (16-float, 64-byte aligned) entry row and work
@@ -200,15 +241,13 @@ __device__ __forceinline__ Staged stage_entry(const float* row16, float ox,
   const float4 r0 = row[0];
   const float4 r1 = row[1];
   const float2 r2 = *reinterpret_cast<const float2*>(row + 2);
-  const float mx = r0.x - ox, my = r0.y - oy;
-  const Rect r = cull_rect(mx, my, r0.z, r0.w, r1.x, r1.y, alpha_min, tile_h,
-                           tile_w);
+  const StagedGeo g = stage_geometry(r0, r1.x, r1.y, ox, oy, alpha_min,
+                                     tile_h, tile_w, s_wy0, s_wy1);
   Staged e;
-  e.geo = make_float4(mx, my, r0.z, r0.w);
-  e.cut = make_float4(r1.x, r1.y, __int_as_float(r.x0 | (r.x1 << 16)),
-                      __int_as_float(r.y0 | (r.y1 << 16)));
+  e.geo = g.geo;
+  e.cut = g.cut;
   e.col = make_float4(r1.z, r1.w, r2.x, r2.y);
-  e.mask = warp_mask(r, s_wy0, s_wy1);
+  e.mask = g.mask;
   return e;
 }
 

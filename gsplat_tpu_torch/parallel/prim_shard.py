@@ -9,11 +9,11 @@ Alpha compositing is associative over depth-ordered segments:
 
 so the slabs' (accum, t_final) combine exactly. What a slab cannot know by
 itself is where a pixel's early termination falls, since it starts at local
-T = 1. With ``exact_cut`` a first cut-free pass gives every slab's
-transmittance Π(1−α) (``slab_transmittance``: csrc/slab_tmit.cu on the
-card), the exclusive product over nearer slabs is the transmittance each
-pixel arrives with, and the real pass hands it to the compositor's stop
-test as ``t_init``.
+T = 1. With ``exact_cut`` a first cut-free pass gives the transmittance
+Π(1−α) of every slab but the farthest (``slab_transmittance``:
+csrc/slab_tmit.cu on the card), the exclusive product over nearer slabs is
+the transmittance each pixel arrives with, and the real pass hands it to
+the compositor's stop test as ``t_init``.
 
 The slabs run one after another on the device the gaussians lie on; where
 the JAX package all-gathers over the mesh axis, ``gather_parts`` stacks the
@@ -115,15 +115,26 @@ def arriving_transmittance(slabs: List[Entries],
                            cfg: RasterizerConfig) -> torch.Tensor:
     """(K,T,P): the transmittance each pixel arrives with at each slab, the
     exclusive product over nearer slabs of their cut-free transmittance
-    Π(1−α) (pass 1 of the exact cut). No gradient."""
-    t_nocut = gather_parts([
+    Π(1−α) (pass 1 of the exact cut), all ones at slab 0. No gradient.
+
+    No slab lies behind the farthest, so its own transmittance is in no
+    product and is not computed: K−1 launches of ``slab_transmittance``, none
+    for K = 1. The JAX package computes it all the same, each device its own
+    slab's under ``shard_map``, where the farthest device's pass runs beside
+    the others' and costs no time; here the slabs run one after another on
+    one device, and that pass would be pure cost."""
+    e0 = slabs[0]
+    ones = torch.ones(
+        (1, e0.n_tiles_x * e0.n_tiles_y, cfg.tile_h * cfg.tile_w),
+        dtype=e0.entries.dtype, device=e0.entries.device)
+    t_nocut = [
         slab_transmittance(
             e.entries.detach(), e.binning.tile_start, e.binning.tile_count,
             n_tiles_x=e.n_tiles_x, n_tiles_y=e.n_tiles_y, tile_h=cfg.tile_h,
             tile_w=cfg.tile_w, chunk=cfg.chunk, alpha_min=cfg.alpha_min,
-            alpha_max=cfg.alpha_max)
-        for e in slabs])
-    return _exclusive_cumprod(t_nocut)
+            alpha_max=cfg.alpha_max)[None]
+        for e in slabs[:-1]]
+    return torch.cumprod(torch.cat([ones] + t_nocut), dim=0)
 
 
 def render_prim_sharded(gaussians: GaussianParams, cam: CameraView,

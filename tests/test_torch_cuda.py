@@ -9,8 +9,9 @@ version on the same inputs:
   partial maps its launch can write, which are held to
   ``ssim_partials_plain`` at that gate; the backward (one launch from the
   partial maps) also against ``ssim_bwd_plain``, on ragged tiles too;
-- the slab transmittance: rtol 1e-5 / atol 1e-6 against its plain version
-  and against the compositor kernel's cut-free t_final;
+- the slab transmittance: rtol 1e-5 / atol 1e-6 against its plain version,
+  and the compositor kernel's cut-free t_final bit for bit, on a rendered
+  frame and on the rows that try the cull rectangle (both kernels cull);
 - the compositor with ``t_init`` and ``tile_id_base`` and its backward from
   such a forward, at the compositor's gates; the depth-slab and tile-band
   renders on the card against the same on the CPU;
@@ -61,6 +62,7 @@ pytestmark = pytest.mark.cuda
 IMG_TOL = dict(rtol=2e-4, atol=2e-5)
 GRAD_TOL = dict(rtol=5e-3, atol=1e-6)
 SSIM_GRAD_TOL = dict(rtol=2e-4, atol=1e-6)
+SLAB_TOL = dict(rtol=1e-5, atol=1e-6)
 # (tile_h, tile_w, chunk, W, H)
 SHAPES = [(8, 128, 16, 256, 24), (32, 32, 64, 96, 64)]
 IDS = ["8x128", "32x32"]
@@ -280,15 +282,28 @@ def test_kernels_with_t_init_and_tile_id_base_match_plain(shape,
 @pytest.mark.parametrize("kind", KINDS)
 def test_kernels_on_rows_that_try_the_cull_rectangle(kind, shape,
                                                      cuda_device):
-    """The lower tile row of a 2x2 frame of adversarial entries, with its
-    tile_id_base and a random t_init: the forward at the image gate, the
-    backward at the gradient gate with its atol scaled by the column's
+    """The slab transmittance on a 2x2 frame of adversarial entries; then
+    the lower tile row, with its tile_id_base and a random t_init: the
+    compositor forward at the image gate, the backward at the gradient
+    gate with its atol scaled by the column's
     largest gradient where that exceeds 1 (a column sums up to a tile's
     pixels, in another order than autograd), zero on rows autograd leaves
     at zero, and the same bits on a second launch. A row with a non-finite
     field contributes nowhere; autograd gives it a NaN gradient (0 x NaN),
     the kernel 0, so those rows are compared on the forward only."""
     (entries, ts, tc), geo = frame(kind, shape, seed=2, device=cuda_device)
+    # the slab transmittance (no tile_id_base) on the whole 2x2 frame: its
+    # plain version at its gate, the cut-free compositor's t_final bit for
+    # bit, the same bits twice
+    tmit = tcomp.slab_transmittance_cuda(entries, ts, tc, **geo)
+    torch.testing.assert_close(
+        tmit, slab_transmittance_plain(entries, ts, tc, **geo), **SLAB_TOL)
+    assert torch.equal(tmit, tcomp.composite_fwd_cuda(
+        entries, ts, tc, **geo, t_eps=0.0).t_final)
+    assert torch.equal(tmit, tcomp.slab_transmittance_cuda(entries, ts, tc,
+                                                           **geo))
+    if kind in ("random", "tiny", "anisotropic", "clamped"):
+        assert float(tmit.min()) < 1.0
     base = geo["n_tiles_x"]
     ts, tc = ts[base:].contiguous(), tc[base:].contiguous()
     geo = dict(geo, n_tiles_y=1, tile_id_base=base)
@@ -360,8 +375,9 @@ def test_kernels_cull_nothing_without_a_floor(floor, cuda_device):
 
 def test_slab_and_band_renders_on_card_match_cpu(cuda_device):
     """render_prim_sharded and render_tile_sharded on the card launch their
-    kernels once per slab or band, forward and backward, and give the CPU
-    route's images and gradients."""
+    kernels once per slab or band, forward and backward (the slab
+    transmittance on all slabs but the farthest), and give the CPU route's
+    images and gradients."""
     W, H = 96, 128
     cfg = _cfg(32, 32, 64)
     renders = {
@@ -369,7 +385,8 @@ def test_slab_and_band_renders_on_card_match_cpu(cuda_device):
             p, c, W, H, bg, cfg, n_slabs=4, m_cap=400 * 12)[:2],
         "band": lambda p, c, bg: tile_shard.render_tile_sharded(
             p, c, W, H, bg, cfg, n_bands=2)[:2]}
-    want_launches = {"slab": (4, 4, 4), "band": (2, 2, 0)}
+    # pass 1 runs on every slab but the farthest
+    want_launches = {"slab": (4, 4, 3), "band": (2, 2, 0)}
     for name, render in renders.items():
         outs = []
         for dev in ("cpu", cuda_device):

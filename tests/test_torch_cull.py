@@ -4,7 +4,8 @@ numpy-seeded random and adversarial entry rows: no pixel that passes the
 compositor's alpha test lies outside its entry's rectangle, and the
 compositor with the pairs outside the rectangles masked away
 (``cull=True``) gives accum, t_final, n_contrib and the gradient bit for
-bit. The rectangle is the port's own (the JAX package has none), so the
+bit, and the slab transmittance so masked (the plain model of
+csrc/slab_tmit.cu, which culls too) gives its bits. The rectangle is the port's own (the JAX package has none), so the
 oracle here is the port's plain compositor, itself held to JAX in
 tests/test_torch_composite.py."""
 import numpy as np
@@ -15,7 +16,8 @@ from hypothesis import strategies as st
 
 from gsplat_tpu_torch.ops.composite_ref import (_TileWalk, composite_tiles_plain,
                                                 cull_rect_plain,
-                                                cull_rects_plain)
+                                                cull_rects_plain,
+                                                slab_transmittance_plain)
 
 from torch_cull_cases import (CFG, CONSTS, KINDS, N, SHAPE_IDS, SHAPES, conic,
                               frame)
@@ -71,6 +73,18 @@ def test_masking_outside_the_rectangle_changes_nothing(kind, shape):
                                equal_nan=True)
     if kind in ("random", "tiny", "anisotropic", "clamped"):
         assert int(plain.n_contrib.max()) > 0
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_masking_outside_the_rectangle_keeps_the_slab_transmittance(kind,
+                                                                    shape):
+    args, geo = frame(kind, shape, seed=1)
+    plain = slab_transmittance_plain(*args, **geo)
+    culled = slab_transmittance_plain(*args, **geo, cull=True)
+    torch.testing.assert_close(culled, plain, rtol=0, atol=0, equal_nan=True)
+    if kind in ("random", "tiny", "anisotropic", "clamped"):
+        assert float(plain.min()) < 1.0          # the case is not vacuous
 
 
 def test_rectangle_cases_by_hand():

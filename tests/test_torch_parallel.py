@@ -22,6 +22,7 @@ from gsplat_tpu.parallel import prim_shard as jprim
 from gsplat_tpu.parallel import tile_shard as jtile
 from gsplat_tpu.parallel.mesh import make_mesh
 from gsplat_tpu_torch.ops import rasterize as tras
+from gsplat_tpu_torch.ops.composite_ref import slab_transmittance_plain
 from gsplat_tpu_torch.parallel import gather_parts
 from gsplat_tpu_torch.parallel import prim_shard as tprim
 from gsplat_tpu_torch.parallel import tile_shard as ttile
@@ -135,6 +136,43 @@ def test_prim_sharded_one_slab_is_the_single_render(rng):
     assert int(ovf) == 0
     np.testing.assert_array_equal(t2n(img), t2n(single.image))
     np.testing.assert_array_equal(t2n(inv), t2n(single.invdepth))
+
+
+@pytest.mark.parametrize("n_slabs", [1, 4])
+def test_arriving_transmittance_skips_the_farthest_slab(rng, monkeypatch,
+                                                        n_slabs):
+    """Pass 1 runs ``slab_transmittance`` on every slab but the farthest
+    (none for one slab) and still returns, bit for bit, the exclusive
+    product over all the slabs' plain transmittances."""
+    g, cam, _, ct, W, H, m_cap = _slab_scene(rng)
+    tg, tcam = port_scene(g, cam)
+    with torch.no_grad():
+        slabs = tprim.build_slab_entries(
+            tg, tcam, W, H, ct, n_slabs=n_slabs,
+            m_cap=m_cap if n_slabs > 1 else None)
+    assert all(int(e.binning.overflow) == 0 for e in slabs)
+    calls = []
+    launch = tprim.slab_transmittance
+
+    def counted(entries, *args, **kw):
+        calls.append(entries.data_ptr())
+        return launch(entries, *args, **kw)
+
+    monkeypatch.setattr(tprim, "slab_transmittance", counted)
+    with torch.no_grad():
+        got = tprim.arriving_transmittance(slabs, ct)
+    assert calls == [e.entries.data_ptr() for e in slabs[:-1]]
+    kw = dict(n_tiles_x=slabs[0].n_tiles_x, n_tiles_y=slabs[0].n_tiles_y,
+              tile_h=ct.tile_h, tile_w=ct.tile_w, chunk=ct.chunk,
+              alpha_min=ct.alpha_min, alpha_max=ct.alpha_max)
+    t = torch.stack([slab_transmittance_plain(
+        e.entries, e.binning.tile_start, e.binning.tile_count, **kw)
+        for e in slabs])
+    want = torch.cumprod(torch.cat([torch.ones_like(t[:1]), t[:-1]]), dim=0)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert bool((got[0] == 1.0).all())
+    if n_slabs > 1:
+        assert float(got[-1].min()) < 0.5       # nearer slabs do occlude
 
 
 def test_prim_sharded_reports_overflow(rng):
