@@ -71,6 +71,7 @@ Any failure raises and exits non-zero; without CUDA it exits non-zero
 before printing any result.
 """
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -101,6 +102,7 @@ from gsplat_tpu_torch.ops.kernels.ssim import (ssim_bwd_cuda, ssim_fwd_cuda,
                                                ssim_partials_plain)
 from gsplat_tpu_torch.parallel import prim_shard, sharded, tile_shard
 from gsplat_tpu_torch.scene import ply as ply_lib
+from gsplat_tpu_torch.train import checkpoint as ckpt_lib
 from gsplat_tpu_torch.train import trainer
 
 SEED = 0
@@ -218,7 +220,6 @@ def profile_call(label, fn, n_top=12):
     """Where one call's device time goes: torch.profiler's device time by
     kernel (device-side events only, so nothing counts twice), against the
     call's host-clock time under the profiler."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -226,6 +227,13 @@ def profile_call(label, fn, n_top=12):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
+    return print_profile(label, prof, wall_ms, n_top)
+
+
+def print_profile(label, prof, wall_ms, n_top):
+    """Print a profile's device busy time, op count and top kernels beside
+    the host-clock time it covered. Returns the busy ms."""
+    from torch.autograd import DeviceType
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
@@ -237,6 +245,7 @@ def profile_call(label, fn, n_top=12):
     print(f"profile {label}: wall {wall_ms:.3f} ms under the profiler, "
           f"device busy {busy_ms:.3f} ms in {n_ops} device ops; top: {top}",
           flush=True)
+    return busy_ms
 
 
 def kernel_device_ms(fn, reps):
@@ -1442,6 +1451,373 @@ def sharded_phase(state, cams, cam, gt, cfg, scfg, m_loc, pairs):
     return total
 
 
+# ---------------------------------------------------------------- phase 8
+# The training loop (train/loop.py) on a COLMAP scene of bench.py's cloud:
+# run A trains LOOP_ITERS iterations through LOOP_DENSIFY events, an opacity
+# reset, an eval, a save and a checkpoint at LOOP_CKPT; run B resumes from
+# that checkpoint to LOOP_ITERS. The schedule keeps the screen-size prune
+# out (the reset comes at the last densify event): the cameras' extent
+# is small, so its world-space rule would drop most of the cloud. Random
+# ground truth gives gradient statistics far below the default threshold
+# (at 2e-4 no gaussian of this scene densifies), so it is 1e-6; the loop
+# line prints the statistic's quantiles at each densify event.
+LOOP_CAMS = 8
+LOOP_ITERS = 60
+LOOP_CKPT = 30
+LOOP_THRESHOLD = 1e-6
+LOOP_OPT = dict(iterations=LOOP_ITERS, densify_from_iter=5,
+                densification_interval=15, densify_until_iter=50,
+                opacity_reset_interval=45,
+                densify_grad_threshold=LOOP_THRESHOLD)
+LOOP_DENSIFY = [15, 30, 45]
+LOOP_RESET = [45]
+LOOP_PROFILE_STEP = 20     # the iteration profiled whole (no event in it)
+# the sharded loop: 4 row shards, ring transient, a densify event at 4
+LOOP_SHARD_OPT = dict(iterations=6, densify_from_iter=1,
+                      densification_interval=4, opacity_reset_interval=3000,
+                      densify_grad_threshold=LOOP_THRESHOLD)
+
+
+class Tee:
+    """stdout that also keeps what it was given (the loop's own lines)."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, s):
+        self.out.write(s)
+        self.lines.append(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def count(self, text):
+        return "".join(self.lines).count(text)
+
+
+class LoopProbe:
+    """Wraps what the loop looks up at call time: ``trainer.train_step``
+    and the steps ``sharded.make_sharded_train_step`` makes (counts the
+    steps, times the first from ``t0``, profiles the iteration that runs
+    step ``profile_step``: from its step's call to the next), ``Scene``
+    (synchronised ms of its construction), ``trainer.densify_step`` (synchronised ms and live gaussians before
+    and after each event) and ``checkpoint.save_checkpoint`` (ms, bytes,
+    the state it was given)."""
+
+    def __init__(self, profile_step=None):
+        self.t0 = time.perf_counter()
+        self.profile_step = profile_step
+        self.first_step_ms = None
+        self.scene_ms = None
+        self.steps = 0
+        self.densify = []           # (iteration, ms, live before, after,
+        #                              overflow, statistic's 10/50/90%)
+        self.saved = []             # (path, iteration, state, ms, bytes)
+        self.busy_ms = None
+        self._prof = None
+
+    def __enter__(self):
+        from gsplat_tpu_torch.train import loop
+        self._orig = (trainer.train_step, trainer.densify_step,
+                      ckpt_lib.save_checkpoint,
+                      sharded.make_sharded_train_step, loop.Scene)
+        step, densify, save, make_sharded, scene_cls = self._orig
+
+        def probe_step(step_fn, state, *a, **kw):
+            if self.first_step_ms is None:
+                self.first_step_ms = (time.perf_counter() - self.t0) * 1e3
+            self._profile_edge(state.step + 1)
+            self.steps += 1
+            return step_fn(state, *a, **kw)
+
+        def probe_make_sharded(*a, **kw):
+            return functools.partial(probe_step, make_sharded(*a, **kw))
+
+        def probe_scene(*a, **kw):
+            t = time.perf_counter()
+            scene = scene_cls(*a, **kw)
+            torch.cuda.synchronize()
+            self.scene_ms = (time.perf_counter() - t) * 1e3
+            return scene
+
+        def probe_densify(state, *a, **kw):
+            st = state.stats
+            seen = st.denom > 0
+            stat = (st.xyz_gradient_accum[seen] / st.denom[seen]).float()
+            q = torch.quantile(stat[:2 ** 24], torch.tensor(
+                [0.1, 0.5, 0.9], device=stat.device)).tolist()
+            torch.cuda.synchronize()
+            before = state.gaussians.num_active()
+            t = time.perf_counter()
+            out = densify(state, *a, **kw)
+            torch.cuda.synchronize()
+            self.densify.append((state.step, (time.perf_counter() - t) * 1e3,
+                                 before, out[0].gaussians.num_active(),
+                                 int(out[1]), [float(f"{x:.3e}") for x in q]))
+            return out
+
+        def probe_save(path, state, iteration):
+            t = time.perf_counter()
+            save(path, state, iteration)
+            ms = (time.perf_counter() - t) * 1e3
+            self.saved.append((path, iteration, state, ms,
+                               os.path.getsize(path)))
+
+        trainer.train_step = functools.partial(probe_step, step)
+        trainer.densify_step = probe_densify
+        ckpt_lib.save_checkpoint = probe_save
+        sharded.make_sharded_train_step = probe_make_sharded
+        loop.Scene = probe_scene
+        return self
+
+    def _profile_edge(self, step_no):
+        from torch.profiler import ProfilerActivity, profile
+        if self._prof is not None and step_no != self.profile_step:
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - self._t_prof) * 1e3
+            self._prof.__exit__(None, None, None)
+            self.busy_ms = print_profile(
+                f"one loop iteration (iteration {self.profile_step}: its "
+                "step, host reads, telemetry and the next frame's upload)",
+                self._prof, wall_ms, 15)
+            self._prof = None
+        elif step_no == self.profile_step and self._prof is None \
+                and self.busy_ms is None:
+            torch.cuda.synchronize()
+            self._prof = profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA])
+            self._prof.__enter__()
+            self._t_prof = time.perf_counter()
+
+    def __exit__(self, *exc):
+        from gsplat_tpu_torch.train import loop
+        (trainer.train_step, trainer.densify_step, ckpt_lib.save_checkpoint,
+         sharded.make_sharded_train_step, loop.Scene) = self._orig
+        if self._prof is not None:
+            self._prof.__exit__(None, None, None)
+        return False
+
+
+def write_loop_scene(root, rng, w, h, n_cams):
+    """A COLMAP scene written with the port's writers: bench.py's cloud
+    (``bench_points``) as the points, n_cams PINHOLE cameras at w x h with
+    fovx 1.2 at the poses of ``poses()`` continued, random 8-bit images.
+    Returns the scene's directory."""
+    from PIL import Image
+
+    from gsplat_tpu_torch.scene import colmap
+    images = os.path.join(root, "images")
+    os.makedirs(images, exist_ok=True)
+    f = w / (2 * np.tan(0.6))
+    cams = {1: colmap.ColmapCamera(1, "PINHOLE", w, h,
+                                   np.array([f, f, w / 2, h / 2]))}
+    imgs = {}
+    for i in range(n_cams):
+        a = 0.04 * i
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                      [-np.sin(a), 0, np.cos(a)]])    # camera to world
+        name = f"im_{i:03d}.png"
+        imgs[i + 1] = colmap.ColmapImage(
+            i + 1, colmap.rotmat2qvec(R.T),
+            np.array([0.1 * i, -0.05 * i, 0.0]), 1, name)
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)) \
+            .save(os.path.join(images, name), compress_level=1)
+    pts, colors = bench_points(rng)
+    colmap.write_model(cams, imgs, (
+        np.arange(len(pts), dtype=np.int64), pts.astype(np.float64),
+        (colors * 255).astype(np.uint8), np.zeros(len(pts))),
+        os.path.join(root, "sparse", "0"))
+    return root
+
+
+def loop_log(model):
+    with open(os.path.join(model, "training_log.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def run_loop(src, model, dev, opt_kw, *, tests=(), saves=(), ckpts=(),
+             start=None, profile_step=None, **kw):
+    """train(...) of the port on ``dev`` under a LoopProbe and a Tee.
+    Returns (scene, state, probe, tee, seconds)."""
+    import contextlib
+    import random
+    import sys
+
+    from gsplat_tpu_torch.config import ModelConfig, PipelineConfig
+    from gsplat_tpu_torch.train import loop
+    random.seed(0)
+    tee = Tee(sys.stdout)
+    t = time.perf_counter()
+    with LoopProbe(profile_step) as probe, contextlib.redirect_stdout(tee):
+        scene, state = loop.train(
+            ModelConfig(source_path=src, model_path=model, sh_degree=3,
+                        resolution=1, eval=True),
+            OptimizationConfig(**opt_kw), PipelineConfig(),
+            RasterizerConfig(), list(tests), list(saves), list(ckpts),
+            start_checkpoint=start, quiet=True, device=dev, **kw)
+        torch.cuda.synchronize()
+    return scene, state, probe, tee, time.perf_counter() - t
+
+
+def expected_loop_launches(steps, renders, sharded_shards=0):
+    """What a loop run launches: per step the compositor pair and the SSIM
+    pair (single) or the compositor pair and the scan once per shard
+    (sharded); one compositor forward per eval render."""
+    if sharded_shards:
+        d = sharded_shards * steps
+        want = dict(composite_fwd=d + renders, composite_bwd=d, scan=d)
+    else:
+        want = dict(composite_fwd=steps + renders, composite_bwd=steps,
+                    ssim_fwd=steps, ssim_bwd=steps)
+    return {name: want.get(name, 0) for name in KERNELS}
+
+
+def states_equal(a, b):
+    from gsplat_tpu_torch.train.checkpoint import state_items
+    return all(n1 == n2 and x.dtype == y.dtype and np.array_equal(x, y)
+               for (n1, x), (n2, y) in zip(state_items(a), state_items(b)))
+
+
+def loop_phase(dev, root):
+    """Phase 8: the training loop at full width (run A, then run B resumed
+    from run A's checkpoint), with its gates; then the sharded loop.
+    Returns the launch counts of the loop (A and B) and of the sharded
+    loop."""
+    from gsplat_tpu_torch.models.gaussian_model import compact
+    from gsplat_tpu_torch.scene import Scene
+    from gsplat_tpu_torch.train.checkpoint import load_checkpoint
+
+    t = time.perf_counter()
+    src = write_loop_scene(os.path.join(root, "loop_scene"),
+                           np.random.default_rng(SEED + 8), W, H, LOOP_CAMS)
+    write_s = time.perf_counter() - t
+    model_a, model_b = (os.path.join(root, n) for n in ("loop_a", "loop_b"))
+    peak = []
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    _, state_a, pa, tee_a, sec_a = run_loop(
+        src, model_a, dev, LOOP_OPT, tests=[LOOP_ITERS], saves=[LOOP_ITERS],
+        ckpts=[LOOP_CKPT], profile_step=LOOP_PROFILE_STEP)
+    ckpt_path = os.path.join(model_a, f"chkpnt{LOOP_CKPT}.npz")
+    scene_b, state_b, pb, tee_b, sec_b = run_loop(
+        src, model_b, dev, LOOP_OPT, tests=[LOOP_ITERS], saves=[LOOP_ITERS],
+        start=ckpt_path)
+    launches = read_launches()
+    peak.append(torch.cuda.max_memory_allocated() / 1e9)
+
+    log_a, log_b = loop_log(model_a), loop_log(model_b)
+    steps_a = [r for r in log_a if "train_loss_patches/total_loss" in r]
+    steps_b = [r for r in log_b if "train_loss_patches/total_loss" in r]
+    check([r["step"] for r in steps_a] == list(range(1, LOOP_ITERS + 1))
+          and [r["step"] for r in steps_b]
+          == list(range(LOOP_CKPT + 1, LOOP_ITERS + 1)),
+          "the loop's logged steps")
+    losses_all = [r["train_loss_patches/total_loss"] for r in steps_a + steps_b]
+    check(all(np.isfinite(losses_all)), f"non-finite loss {losses_all}")
+    retries = tee_a.count("retrying frame") + tee_b.count("retrying frame")
+    n_steps = LOOP_ITERS + (LOOP_ITERS - LOOP_CKPT) + retries
+    check(pa.steps + pb.steps == n_steps,
+          f"{pa.steps + pb.steps} steps, expected {n_steps}")
+    densify_its = [d[0] for d in pa.densify]
+    check(densify_its == LOOP_DENSIFY and [d[0] for d in pb.densify]
+          == [i for i in LOOP_DENSIFY if i > LOOP_CKPT],
+          f"densify events at {densify_its}, {[d[0] for d in pb.densify]}")
+    by_step = {r["step"]: r["total_points"] for r in steps_a}
+    check(by_step[LOOP_DENSIFY[0]] > by_step[LOOP_DENSIFY[0] - 1],
+          "total_points did not grow at the first densify event")
+
+    # the checkpoint reloaded, bit for bit
+    (path, it, saved, save_ms, save_bytes), = pa.saved
+    check(path == ckpt_path and it == LOOP_CKPT, f"checkpoint {path} {it}")
+    t = time.perf_counter()
+    back, it = load_checkpoint(ckpt_path, device=dev)
+    load_ms = (time.perf_counter() - t) * 1e3
+    check(it == LOOP_CKPT and states_equal(back, saved),
+          "the checkpoint reloaded differs from the state saved")
+    del back, saved
+    # the PLY re-read by a load-iteration Scene equals the final state
+    from gsplat_tpu_torch.config import ModelConfig
+    live = compact(state_b.gaussians)
+    n = live.num_active()
+    reread = Scene(ModelConfig(source_path=src, model_path=model_b,
+                               sh_degree=3, resolution=1, eval=True), 3,
+                   load_iteration=LOOP_ITERS, device=dev).gaussians
+    check(reread.capacity == n and all(
+        torch.equal(getattr(reread, k), getattr(live, k)[:n])
+        for k in ("xyz", "f_dc", "f_rest", "scaling", "rotation",
+                  "opacity")), "the saved PLY differs from the final state")
+    del live, reread
+
+    n_eval = 2 * (len(scene_b.getTestCameras()) + 5)
+    want = expected_loop_launches(n_steps, n_eval)
+    for name in KERNELS:
+        check(launches[name] == want[name], f"{name} launched "
+              f"{launches[name]} times in the loop, expected {want[name]}")
+    iter_ms = [r["iter_time"] * 1e3 for r in steps_a]
+    evals = [(k, round(v, 4)) for r in log_b for k, v in r.items()
+             if "psnr" in k]
+    print(f"loop {W}x{H}, {N_GAUSS} points, {LOOP_CAMS} cameras "
+          f"(scene written in {write_s:.2f} s): run A {LOOP_ITERS} "
+          f"iterations in {sec_a:.2f} s, run B (resumed at {LOOP_CKPT}) in "
+          f"{sec_b:.2f} s; time to the first step {pa.first_step_ms:.1f} ms "
+          f"(A), {pb.first_step_ms:.1f} ms (B, with the checkpoint load), "
+          f"of which Scene init (images, PLY, create_from_pcd and its kNN) "
+          f"{pa.scene_ms:.1f} ms, {pb.scene_ms:.1f} ms; iteration ms median {np.median(iter_ms):.3f} (A, host "
+          f"clock, iter_time; min {min(iter_ms):.3f}, max "
+          f"{max(iter_ms):.3f}); densify events (iteration, ms, live before, "
+          f"after, overflow, the gradient statistic's 10/50/90% quantiles "
+          f"on seen gaussians; threshold {LOOP_THRESHOLD}): "
+          f"{[(d[0], round(d[1], 3), *d[2:]) for d in pa.densify + pb.densify]}; "
+          f"capacity {state_a.gaussians.capacity} (A), "
+          f"{state_b.gaussians.capacity} (B); retries {retries}; "
+          f"pairs_per_gaussian lines "
+          f"{tee_a.count('pairs_per_gaussian')}; checkpoint save "
+          f"{save_ms:.1f} ms ({save_bytes / 1e6:.1f} MB, savez_compressed), "
+          f"load {load_ms:.1f} ms, bit for bit; final PLY re-read equal "
+          f"({n} gaussians); eval {evals}; steps {n_steps}; launches "
+          f"{launches}; peak memory {peak[0]:.2f} GB", flush=True)
+    del state_a, state_b, scene_b
+
+    # the sharded loop: 4 shards, ring
+    model_s = os.path.join(root, "loop_sharded")
+    reset_launches()
+    _, state_s, ps, tee_s, sec_s = run_loop(
+        src, model_s, dev, LOOP_SHARD_OPT, saves=[LOOP_SHARD_OPT["iterations"]],
+        shard_gaussians=True, n_shards=N_SHARDS, shard_transient="ring")
+    shard_launches = read_launches()
+    log_s = [r for r in loop_log(model_s)
+             if "train_loss_patches/total_loss" in r]
+    losses_s = [r["train_loss_patches/total_loss"] for r in log_s]
+    check(all(np.isfinite(losses_s)), f"sharded loop loss {losses_s}")
+    s_retries = tee_s.count("retrying frame")
+    s_steps = LOOP_SHARD_OPT["iterations"] + s_retries
+    check(ps.steps == s_steps and len(ps.densify) == 1,
+          f"sharded loop: {ps.steps} steps, {len(ps.densify)} densify events")
+    cap = state_s.gaussians.capacity
+    check(cap % N_SHARDS == 0 and all(
+        [t.shape[0] for t in sharded.shard_rows(x, N_SHARDS)]
+        == [cap // N_SHARDS] * N_SHARDS
+        for x in (state_s.gaussians.xyz, state_s.adam.mu["xyz"],
+                  state_s.stats.denom)), "sharded loop: shards")
+    check(os.path.exists(os.path.join(
+        model_s, f"point_cloud/iteration_{LOOP_SHARD_OPT['iterations']}",
+        "point_cloud.ply")), "sharded loop: no PLY")
+    want = expected_loop_launches(s_steps, 0, sharded_shards=N_SHARDS)
+    for name in KERNELS:
+        check(shard_launches[name] == want[name],
+              f"{name} launched {shard_launches[name]} times in the sharded "
+              f"loop, expected {want[name]}")
+    iter_s = [r["iter_time"] * 1e3 for r in log_s]
+    print(f"sharded loop, {N_SHARDS} shards, ring: "
+          f"{LOOP_SHARD_OPT['iterations']} iterations in {sec_s:.2f} s, "
+          f"iteration ms {[round(x, 3) for x in iter_s]}, densify "
+          f"{[(d[0], round(d[1], 3), *d[2:]) for d in ps.densify]}, "
+          f"capacity {cap} ({cap // N_SHARDS} rows/shard), retries "
+          f"{s_retries}, losses {[round(x, 6) for x in losses_s]}, "
+          f"launches {shard_launches}", flush=True)
+    return launches, shard_launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing run")
@@ -1591,12 +1967,19 @@ def main():
     sharded_launches = sharded_phase(state, cams, tcam, tgt, tcfg, scfg,
                                      m_loc, shard_pairs)
 
+    # ---- phase 8: the training loop at full width, then sharded
+    del state
+    loop_counts, loop_sharded_launches = loop_phase(
+        dev, os.path.join(REPO, "build", "chip_smoke"))
+
     kernels = []
     for name, k in KERNELS.items():
         by_path = {"render": render_launches[name],
                    "train": train_launches[name],
                    "slab": slab_launches[name], "band": band_launches[name],
-                   "sharded": sharded_launches[name]}
+                   "sharded": sharded_launches[name],
+                   "loop": loop_counts[name],
+                   "loop_sharded": loop_sharded_launches[name]}
         check(any(by_path.values()), f"{name} was launched on no path")
         n = numbers[name]
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"):
@@ -1605,8 +1988,8 @@ def main():
             name=name, route="cuda",
             source=f"gsplat_tpu_torch/ops/kernels/csrc/{name}.cu",
             replaces=" + ".join(PALLAS + r for r in k["replaces"]),
-            launches=(by_path["train"] or by_path["slab"]
-                      or by_path["sharded"]),
+            launches=(by_path["loop"] or by_path["loop_sharded"]
+                      or by_path["slab"]),
             launches_by_path=by_path, **{"library_ms": None, **n}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

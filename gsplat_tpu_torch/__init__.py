@@ -8,7 +8,9 @@ The module tree mirrors ``gsplat_tpu`` so each counterpart is easy to find:
 - ``gsplat_tpu_torch.ops``     — preprocess, binning, entry gather and the tile
                                  compositor (hand-written CUDA kernel on the
                                  card, plain PyTorch on the CPU).
-- ``gsplat_tpu_torch.cli``     — the render entry point.
+- ``gsplat_tpu_torch.train``   — the train step, densification, Adam, the
+                                 host training loop and checkpoints.
+- ``gsplat_tpu_torch.cli``     — the train and render entry points.
 
 The package imports ``torch`` and never ``jax`` or ``gsplat_tpu``. Entry
 points take an explicit ``device`` that defaults to ``"cuda"``; they raise

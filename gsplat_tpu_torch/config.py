@@ -147,6 +147,16 @@ _GROUPS = {"model": ModelConfig, "pipeline": PipelineConfig,
            "optimization": OptimizationConfig, "rasterizer": RasterizerConfig}
 
 
+def save_cfg(model_path: str, cfgs: dict) -> None:
+    """Write the merged config snapshot ``cfg_args.json``: one object per
+    group name (``model``, ``pipeline``, ``optimization``, ``rasterizer``)
+    holding its dataclass's fields, as the JAX package writes it."""
+    os.makedirs(model_path, exist_ok=True)
+    payload = {k: dataclasses.asdict(v) for k, v in cfgs.items()}
+    with open(os.path.join(model_path, "cfg_args.json"), "w") as f:
+        json.dump(payload, f, indent=2)
+
+
 def load_cfg(model_path: str) -> dict:
     """Load a saved ``cfg_args.json`` snapshot into the known dataclasses."""
     with open(os.path.join(model_path, "cfg_args.json")) as f:

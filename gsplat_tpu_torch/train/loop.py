@@ -1,0 +1,333 @@
+"""The host-side training loop around the train step. Counterpart of
+gsplat_tpu/train/loop.py.
+
+It follows the reference trainer: a random camera order without replacement
+per epoch (Python's ``random``, as the JAX loop draws it), test, save and
+checkpoint hooks, progress reporting; and the host duties of the padded
+buffers: growing the gaussian capacity when a densify event runs out of
+slots, and the pair-list capacity (``pairs_per_gaussian``) grown with a
+retry of the frame from the pre-step state when a frame overflows, and
+shrunk when it is over-provisioned.
+
+Where JAX's loop splits one ``PRNGKey(0)`` per random draw (the random
+background, the split samples of a densify event), the port draws from one
+``torch.Generator`` seeded 0 on the training device. The step, the densify
+event and the opacity reset are looked up on ``trainer`` at call time, so a
+caller can wrap them. The loop reads the loss, the overflow and the number
+of live gaussians on the host every iteration, as JAX's does.
+
+Branches: with ``shard_gaussians`` and ``n_shards > 1`` the state is held in
+``n_shards`` row shards and each step runs
+``parallel/sharded.py:make_sharded_train_step`` (JAX takes the mesh size as
+the shard count; one card holds the shards one after another). The camera
+data-parallel forms and the viewer bridge are not ported: ``data_parallel``
+changes nothing with one visible device, as in JAX, and raises with more;
+``network_gui_server`` must be None.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+import random
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from gsplat_tpu_torch.config import (ModelConfig, OptimizationConfig,
+                                     PipelineConfig, RasterizerConfig)
+from gsplat_tpu_torch.models import gaussian_model as gm
+from gsplat_tpu_torch.ops import losses
+from gsplat_tpu_torch.ops.rasterize import render
+from gsplat_tpu_torch.parallel import sharded as sharded_lib
+from gsplat_tpu_torch.scene import Scene
+from gsplat_tpu_torch.train import checkpoint as ckpt_lib
+from gsplat_tpu_torch.train import trainer
+from gsplat_tpu_torch.utils.general import Timer, resolve_device
+from gsplat_tpu_torch.utils.telemetry import Telemetry
+
+
+def _round_up(x, m):
+    return -(-x // m) * m
+
+
+def _cam_arrays(cam):
+    """(gt, alpha_mask, invdepth_gt, depth_mask) host arrays of a camera;
+    zero depth maps where it has no reliable one."""
+    H, W = cam.height, cam.width
+    if cam.invdepthmap is not None and cam.depth_reliable:
+        inv_gt, dmask = cam.invdepthmap, cam.depth_mask
+    else:
+        inv_gt = np.zeros((1, H, W), np.float32)
+        dmask = np.zeros((1, H, W), np.float32)
+    return cam.image, cam.alpha_mask, inv_gt, dmask
+
+
+def train(dataset: ModelConfig, opt: OptimizationConfig, pipe: PipelineConfig,
+          rcfg: RasterizerConfig, testing_iterations, saving_iterations,
+          checkpoint_iterations, start_checkpoint: Optional[str] = None,
+          network_gui_server=None, quiet: bool = False,
+          capacity_multiplier: float = 4.0, data_parallel: bool = False,
+          checkpoint_interval: int = 0, shard_gaussians: bool = False,
+          shard_transient: str = "replicated", *, device="cuda",
+          n_shards: int = 1):
+    """Run the full optimization on ``device``. Returns (scene, state)."""
+    dev = resolve_device(device)
+    if network_gui_server is not None:
+        raise NotImplementedError("the viewer bridge is not ported")
+    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if data_parallel and n_dev > 1:
+        raise NotImplementedError(
+            "camera data-parallel training over several cards is not ported")
+    if n_shards > 1 and not shard_gaussians:
+        raise ValueError("n_shards > 1 needs shard_gaussians")
+
+    scene = Scene(dataset, dataset.sh_degree, capacity=0, device=dev)
+    n0 = scene.gaussians.num_active()
+    cap0 = _round_up(max(int(n0 * capacity_multiplier), 1024), 1024)
+    scene.gaussians = gm.pad_to_capacity(scene.gaussians, cap0)
+
+    train_cams = scene.getTrainCameras()
+    state = trainer.init_state(scene.gaussians, len(train_cams))
+    first_iter = 0
+    if start_checkpoint:
+        if os.path.isdir(start_checkpoint):
+            # a manager directory (--checkpoint_interval output)
+            mngr = ckpt_lib.AsyncCheckpointManager(start_checkpoint)
+            state, first_iter = mngr.restore_latest(device=dev)
+            mngr.close()
+        else:
+            state, first_iter = ckpt_lib.load_checkpoint(start_checkpoint,
+                                                         device=dev)
+        print(f"Resumed from {start_checkpoint} at iteration {first_iter}")
+
+    bg_color = torch.tensor([1.0, 1.0, 1.0] if dataset.white_background
+                            else [0.0, 0.0, 0.0], dtype=torch.float32,
+                            device=dev)
+    use_sparse_adam = opt.optimizer_type == "sparse_adam"
+    use_depth = any(c.invdepthmap is not None for c in train_cams)
+    spatial_lr_scale = float(scene.cameras_extent)
+    step_kw = dict(opt=opt, spatial_lr_scale=spatial_lr_scale,
+                   antialiasing=pipe.antialiasing,
+                   use_sparse_adam=use_sparse_adam,
+                   train_test_exp=dataset.train_test_exp, use_depth=use_depth)
+
+    # ---- gaussian-sharded storage (parallel/sharded.py) ----
+    n_prim = n_shards if shard_gaussians else 1
+    if n_prim > 1:
+        state = ckpt_lib.grow_capacity(
+            state, _round_up(state.gaussians.capacity, n_prim))
+        state = sharded_lib.shard_state(state, n_prim)
+        print(f"gaussian-sharded training over {n_prim} shards "
+              f"({state.gaussians.capacity // n_prim} rows/shard)")
+
+    viewpoint_stack = []
+    ema_loss = 0.0
+    ema_depth = 0.0
+    pair_ema = None
+    ppg_floor = 4.0    # raised after overflow-grows (shrink hysteresis)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    timer = Timer()
+    telemetry = Telemetry(scene.model_path)
+    t_iter = time.time()
+    # periodic checkpoints written on a background thread
+    # (--checkpoint_interval), beside the synchronous
+    # --checkpoint_iterations snapshots
+    ckpt_mngr = None
+    if checkpoint_interval > 0:
+        ckpt_mngr = ckpt_lib.AsyncCheckpointManager(
+            os.path.join(scene.model_path, "checkpoints"))
+
+    for iteration in range(first_iter + 1, opt.iterations + 1):
+        if not viewpoint_stack:
+            viewpoint_stack = list(scene.getTrainCameras())
+        cam = viewpoint_stack.pop(random.randint(0, len(viewpoint_stack) - 1))
+
+        H, W = cam.height, cam.width
+        if opt.random_background:
+            bg = torch.rand(3, generator=gen, device=dev)
+        else:
+            bg = bg_color
+
+        # the frame's images go to the device every iteration
+        view = cam.view(dev)
+        gt, amask, inv_gt, dmask = (torch.tensor(a, dtype=torch.float32,
+                                                 device=dev)
+                                    for a in _cam_arrays(cam))
+
+        def run_step(s):
+            if n_prim > 1:
+                step = sharded_lib.make_sharded_train_step(
+                    n_prim, image_width=W, image_height=H, rcfg=rcfg,
+                    transient=shard_transient, **step_kw)
+                return step(s, view, gt, amask, inv_gt, dmask, bg)
+            return trainer.train_step(s, view, gt, amask, inv_gt, dmask, bg,
+                                      image_width=W, image_height=H,
+                                      rcfg=rcfg, **step_kw)
+
+        prev_state = state        # the step returns a new state
+        state, aux = run_step(state)
+
+        # ---- adaptive pair-list capacity: overflow retry ----
+        # A truncated frame trained on garbage gradients. Grow the capacity
+        # and redo the step FROM THE PRE-STEP STATE: params, Adam moments
+        # and the frame's densification stats are all rolled back, then the
+        # retry applies the one true update. Runs before densification so a
+        # densify event never acts on the corrupted stats.
+        retry = 0
+        while int(aux.overflow) > 0:
+            retry += 1
+            if retry > 4:   # growth is exponential; 4 doublings = 16x
+                raise RuntimeError(
+                    f"[iter {iteration}] pair list still overflows after "
+                    f"{retry - 1} grow-retries (pairs_per_gaussian="
+                    f"{rcfg.pairs_per_gaussian:.1f}) — a retry that still "
+                    "truncates must never be committed (garbage gradients)")
+            n_act = max(state.gaussians.num_active(), 1)
+            pairs_pg = int(aux.num_pairs) / n_act
+            rcfg = dataclasses.replace(
+                rcfg, pairs_per_gaussian=max(rcfg.pairs_per_gaussian * 2,
+                                             pairs_pg * 1.5))
+            # hysteresis: the overflow also covers the chunk-padding
+            # budget, whose need does not track the pair count: never
+            # shrink back into the same overflow
+            ppg_floor = max(ppg_floor, rcfg.pairs_per_gaussian * 0.55)
+            print(f"[iter {iteration}] pair overflow {int(aux.overflow)} — "
+                  f"pairs_per_gaussian → {rcfg.pairs_per_gaussian:.1f}; "
+                  f"retrying frame from pre-step state")
+            state, aux = run_step(prev_state)
+
+        # ---- --debug failure snapshot ----
+        loss_now = float(aux.loss)
+        if pipe.debug and not math.isfinite(loss_now):
+            from gsplat_tpu_torch.utils.debug import dump_snapshot
+            path = os.path.join(scene.model_path or ".",
+                                f"snapshot_iter{iteration}.npz")
+            dump_snapshot(path, prev_state, view, (gt, amask, inv_gt, dmask),
+                          iteration, reason=f"non-finite loss {loss_now}")
+            raise FloatingPointError(
+                f"[iter {iteration}] non-finite loss {loss_now}; step inputs "
+                f"dumped to {path}")
+
+        # ---- densification, capacity growth, opacity reset ----
+        if iteration < opt.densify_until_iter:
+            if (iteration > opt.densify_from_iter
+                    and iteration % opt.densification_interval == 0):
+                use_ss = iteration > opt.opacity_reset_interval
+                state, ovf = trainer.densify_step(
+                    state, gen, float(scene.cameras_extent), opt=opt,
+                    use_screen_size_prune=use_ss)
+                ovf = int(ovf)
+                if ovf > 0:
+                    new_cap = _round_up(state.gaussians.capacity + max(
+                        ovf, state.gaussians.capacity), 1024)
+                    new_cap = _round_up(new_cap, n_prim)
+                    print(f"[iter {iteration}] capacity "
+                          f"{state.gaussians.capacity} → {new_cap} "
+                          f"(overflow {ovf})")
+                    state = ckpt_lib.grow_capacity(state, new_cap)
+                    if n_prim > 1:
+                        state = sharded_lib.shard_state(state, n_prim)
+            if (iteration % opt.opacity_reset_interval == 0
+                    or (dataset.white_background
+                        and iteration == opt.densify_from_iter)):
+                state = trainer.opacity_reset_step(state)
+
+        depth_f = float(aux.depth_l1)
+        ema_loss = 0.4 * loss_now + 0.6 * ema_loss
+        ema_depth = 0.4 * depth_f + 0.6 * ema_depth
+
+        # scalar telemetry (the reference trainer's report)
+        now = time.time()
+        n_act = state.gaussians.num_active()
+        telemetry.scalars(
+            iteration,
+            **{"train_loss_patches/l1_loss": float(aux.l1),
+               "train_loss_patches/total_loss": loss_now,
+               "train_loss_patches/depth_l1": depth_f,
+               "iter_time": now - t_iter,
+               "total_points": n_act,
+               "num_pairs": int(aux.num_pairs)})
+        t_iter = now
+
+        # ---- adaptive pair-list capacity: shrink when over-provisioned ----
+        # Binning fills m_cap static slots, so its cost follows the
+        # capacity: track the real pair count and keep the capacity ~1.5x
+        # above it. Iteration 1 also fires: the configured default can be
+        # ~10x the scene's real pair count (an under-shrink from one frame
+        # corrects itself through the overflow retry and the floor).
+        pairs_pg = int(aux.num_pairs) / max(n_act, 1)
+        pair_ema = pairs_pg if pair_ema is None else \
+            0.1 * pairs_pg + 0.9 * pair_ema
+        if ((iteration == 1 or iteration % 500 == 0)
+                and rcfg.pairs_per_gaussian > ppg_floor
+                and rcfg.pairs_per_gaussian > 2.5 * pair_ema):
+            new_ppg = max(pair_ema * 1.5, ppg_floor)
+            print(f"[iter {iteration}] shrinking pairs_per_gaussian "
+                  f"{rcfg.pairs_per_gaussian:.1f} → {new_ppg:.1f}")
+            rcfg = dataclasses.replace(rcfg, pairs_per_gaussian=new_ppg)
+
+        if not quiet and iteration % 10 == 0:
+            print(f"[{iteration}/{opt.iterations}] loss={ema_loss:.5f} "
+                  f"depth={ema_depth:.5f} n={n_act} "
+                  f"({timer.elapsed():.0f}s)", flush=True)
+
+        if iteration in testing_iterations:
+            report_eval(scene, state, rcfg, pipe, bg_color, iteration,
+                        dataset.train_test_exp, telemetry=telemetry)
+        if iteration in saving_iterations:
+            print(f"\n[ITER {iteration}] Saving Gaussians")
+            scene.gaussians = state.gaussians
+            scene.save(iteration, exposures=state.exposure.cpu().numpy()
+                       if dataset.train_test_exp else None)
+        if iteration in checkpoint_iterations:
+            print(f"\n[ITER {iteration}] Saving Checkpoint")
+            ckpt_lib.save_checkpoint(
+                os.path.join(scene.model_path, f"chkpnt{iteration}.npz"),
+                state, iteration)
+        if ckpt_mngr is not None and iteration % checkpoint_interval == 0:
+            ckpt_mngr.save(iteration, state)
+
+    scene.gaussians = state.gaussians
+    telemetry.close()
+    if ckpt_mngr is not None:
+        ckpt_mngr.close()
+    return scene, state
+
+
+@torch.no_grad()
+def report_eval(scene, state, rcfg, pipe, bg_color, iteration,
+                train_test_exp=False, telemetry=None):
+    """Mean L1 and PSNR over the test cameras and over train cameras 5,
+    10, ..., 25 (modulo their count), printed and logged."""
+    dev = state.gaussians.device
+    train_cams = scene.getTrainCameras()
+    configs = [("test", scene.getTestCameras()),
+               ("train", [train_cams[idx % len(train_cams)]
+                          for idx in range(5, 30, 5)])]
+    for name, cams in configs:
+        if not cams:
+            continue
+        l1_sum, psnr_sum = 0.0, 0.0
+        for cam in cams:
+            out = render(state.gaussians, cam.view(dev), cam.width,
+                         cam.height, bg_color, rcfg,
+                         antialiasing=pipe.antialiasing)
+            img = torch.clamp(out.image, 0.0, 1.0)
+            gt = torch.clamp(torch.tensor(cam.image, device=dev), 0.0, 1.0)
+            if train_test_exp:
+                img = img[..., img.shape[-1] // 2:]
+                gt = gt[..., gt.shape[-1] // 2:]
+            l1_sum += float(losses.l1_loss(img, gt))
+            psnr_sum += float(losses.psnr(img[None], gt[None]).mean())
+        print(f"\n[ITER {iteration}] Evaluating {name}: "
+              f"L1 {l1_sum / len(cams):.6f} PSNR {psnr_sum / len(cams):.3f}")
+        if telemetry is not None:
+            telemetry.scalars(iteration,
+                              **{f"{name}/loss_viewpoint - l1_loss":
+                                 l1_sum / len(cams),
+                                 f"{name}/loss_viewpoint - psnr":
+                                 psnr_sum / len(cams)})

@@ -1,12 +1,27 @@
-"""General host utilities: device resolution, seeding, stdout timestamps."""
+"""General host utilities: device resolution, seeding, stdout timestamps,
+a wall-clock timer. Counterpart of gsplat_tpu/utils/general.py."""
 from __future__ import annotations
 
+import os
 import random
 import sys
+import time
 from datetime import datetime
 
 import numpy as np
 import torch
+
+
+class Timer:
+    def __init__(self):
+        self.t0 = time.time()
+
+    def elapsed(self):
+        return time.time() - self.t0
+
+
+def mkdir_p(folder_path):
+    os.makedirs(folder_path, exist_ok=True)
 
 
 def resolve_device(device) -> torch.device:

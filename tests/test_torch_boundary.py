@@ -50,17 +50,24 @@ def test_port_imports_no_jax_and_no_gsplat_tpu():
                 "gsplat_tpu_torch.parallel.prim_shard",
                 "gsplat_tpu_torch.parallel.tile_shard",
                 "gsplat_tpu_torch.parallel.sharded",
-                "gsplat_tpu_torch.cli.render", "gsplat_tpu_torch.scene"):
+                "gsplat_tpu_torch.cli.render", "gsplat_tpu_torch.scene",
+                "gsplat_tpu_torch.cli.train", "gsplat_tpu_torch.train.loop",
+                "gsplat_tpu_torch.train.checkpoint",
+                "gsplat_tpu_torch.utils.telemetry",
+                "gsplat_tpu_torch.utils.debug"):
         assert mod in res["modules"]
 
 
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from gsplat_tpu_torch.cli import render as render_cli
-    from gsplat_tpu_torch.config import ModelConfig
+    from gsplat_tpu_torch.cli import train as train_cli
+    from gsplat_tpu_torch.config import (ModelConfig, OptimizationConfig,
+                                         PipelineConfig, RasterizerConfig)
     from gsplat_tpu_torch.core.camera import CameraView
     from gsplat_tpu_torch.models import gaussian_model as gm
     from gsplat_tpu_torch.scene import Scene
     from gsplat_tpu_torch.scene.cameras import MiniCam
+    from gsplat_tpu_torch.train import loop
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     arrays = dict(xyz=np.zeros((2, 3), np.float32),
@@ -86,7 +93,20 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         fn(device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Scene(ModelConfig(model_path=str(tmp_path)), 3, load_iteration=-1)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    # without load_iteration the Scene initialises from the point cloud:
+    # on the CPU it goes on to read the (here missing) scene
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Scene(ModelConfig(model_path=str(tmp_path)), 3)
+    with pytest.raises(ValueError, match="Could not recognize scene type"):
         Scene(ModelConfig(model_path=str(tmp_path)), 3, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         render_cli.main(["-m", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_cli.main(["-s", str(tmp_path), "-m", str(tmp_path / "m")])
+    assert not (tmp_path / "m").exists()      # nothing written first
+    cfgs = (ModelConfig(model_path=str(tmp_path)), OptimizationConfig(),
+            PipelineConfig(), RasterizerConfig(), [], [], [])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        loop.train(*cfgs)
+    with pytest.raises(ValueError, match="Could not recognize scene type"):
+        loop.train(*cfgs, device="cpu")

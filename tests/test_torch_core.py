@@ -82,7 +82,7 @@ def test_camera_view_create_matches_jax(rng):
 def test_cfg_args_json_loads_in_both_packages(tmp_path):
     """``cfg_args.json`` across the packages: one that JAX's save_cfg wrote
     loads in the port (groups and fields it does not keep are skipped), and
-    one written in the same format as the port's configs give loads in JAX.
+    one that the port's save_cfg wrote, in the same format, loads in JAX.
     ``data_device`` keeps each package's own default ("tpu" in JAX, "cuda"
     in the port) and no code of either reads it, so a model moves between
     them unchanged."""
@@ -107,9 +107,9 @@ def test_cfg_args_json_loads_in_both_packages(tmp_path):
             "optimization": tcfg.OptimizationConfig(lambda_dssim=0.3),
             "rasterizer": tcfg.RasterizerConfig(tile_w=64)}
     assert cfgs["model"].data_device == "cuda"
-    tdir.mkdir()
-    (tdir / "cfg_args.json").write_text(json.dumps(
-        {k: dataclasses.asdict(v) for k, v in cfgs.items()}, indent=2))
+    tcfg.save_cfg(str(tdir), cfgs)
+    assert (tdir / "cfg_args.json").read_text() == json.dumps(
+        {k: dataclasses.asdict(v) for k, v in cfgs.items()}, indent=2)
     back = jcfg.load_cfg(str(tdir))
     assert back["model"].data_device == "cuda" and back["model"].sh_degree == 1
     assert back["optimization"].lambda_dssim == 0.3

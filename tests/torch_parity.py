@@ -83,3 +83,39 @@ def state_to_numpy(state):
                 exp_adam=adam(state.exp_adam),
                 stats=to_numpy(state.stats, STATS_FIELDS),
                 step=int(state.step))
+
+
+def make_colmap_scene(root, n_pts=120, n_cams=6, W=64, H=48, rng=None):
+    """The scene of tests/test_cli.py:_make_colmap_scene, written with the
+    port's COLMAP writers: cameras on a ring of radius 3 looking at a small
+    point cloud, random 8-bit images."""
+    import os
+
+    from PIL import Image
+
+    from gsplat_tpu_torch.scene import colmap
+
+    rng = rng or np.random.default_rng(0)
+    sparse = os.path.join(root, "sparse", "0")
+    images_dir = os.path.join(root, "images")
+    os.makedirs(images_dir, exist_ok=True)
+    cams = {1: colmap.ColmapCamera(1, "PINHOLE", W, H,
+                                   np.array([60.0, 60.0, W / 2, H / 2]))}
+    xyz = rng.standard_normal((n_pts, 3)) * 0.5
+    rgb = rng.integers(0, 255, (n_pts, 3)).astype(np.uint8)
+    pts = (np.arange(n_pts, dtype=np.int64), xyz, rgb, np.zeros(n_pts))
+    imgs = {}
+    for i in range(n_cams):
+        a = 2 * np.pi * i / n_cams
+        pos = np.array([3 * np.sin(a), 0.0, -3 * np.cos(a)])
+        fwd = -pos / np.linalg.norm(pos)
+        right = np.cross(np.array([0.0, 1.0, 0.0]), fwd)
+        right /= np.linalg.norm(right)
+        R_wc = np.stack([right, np.cross(fwd, right), fwd], axis=0)
+        name = f"im_{i:03d}.png"
+        imgs[i + 1] = colmap.ColmapImage(i + 1, colmap.rotmat2qvec(R_wc),
+                                         -R_wc @ pos, 1, name)
+        arr = rng.integers(0, 255, (H, W, 3)).astype(np.uint8)
+        Image.fromarray(arr).save(os.path.join(images_dir, name))
+    colmap.write_model(cams, imgs, pts, sparse, binary=True)
+    return root
