@@ -64,7 +64,19 @@ Phases, each printing its own line:
    torch.no_grad() held to the single render, one warm-up and 3 timed
    sharded train steps, and the step's gradients held to the replicated
    transient's and to the single render's under the same loss, with the
-   launch counts read around exactly those; one profiled ring step.
+   launch counts read around exactly those; one ring step profiled with
+   the loss's SSIM on the fused kernels and with the plain SSIM, in turns;
+8. the training loop at full width: a COLMAP scene of bench.py's cloud
+   with 8 cameras at 1920x1080, trained 60 iterations (run A), resumed
+   from its checkpoint (run B), then 6 iterations of the sharded loop;
+9. evaluation and viewing on run A's model: the render CLI on its test
+   view and the metrics CLI with random LPIPS weights written from the
+   seed (``results.json``, ``per_view.json``; SSIM on the card against
+   the plain SSIM, LPIPS on the card against the CPU's on a crop); the web
+   viewer in a server thread over HTTP (``/``, ``/info``, 5 orbit frames
+   at 1920x1080); the SIBR bridge on run A's final state (a kernel-path
+   and a python-path frame) and inside a loop resumed from run A's
+   checkpoint, one frame per iteration; exact launch counts on each.
 Then a ``kernels`` JSON line with one object per kernel of the KERNELS
 table, the nvidia-smi line, and a final JSON line.
 Any failure raises and exits non-zero; without CUDA it exits non-zero
@@ -934,36 +946,43 @@ PALLAS = "gsplat_tpu/ops/pallas/"
 # Every kernel of the port: its wrapper (which counts its launches), the TPU
 # kernel bodies it replaces, and its launches per training step, per slab
 # render (forward; the backward kernel in the backward; the slab
-# transmittance on every slab but the farthest), per band render and
-# per sharded step (the scan in the backward of the ring and slab transients
-# only; the sharded step's loss takes the plain SSIM, as the JAX package's
-# does). The build, the launch
-# checks and the ``kernels`` line all read this one table.
+# transmittance on every slab but the farthest), per band render, per
+# sharded step (the scan in the backward of the ring and slab transients
+# only; one SSIM pair for the step's whole frame, whose loss takes
+# ``losses.ssim`` as the JAX package's does), per scored test view (the
+# render CLI's forward, the metrics CLI's SSIM map) and per viewer frame.
+# The build, the launch checks and the ``kernels`` line all read this one
+# table.
 KERNELS = {
     "composite_fwd": dict(
         wrapper=composite_fwd_cuda, per_step=1, per_slab_render=N_SLABS,
-        per_band_render=N_BANDS, per_sharded_step=N_SHARDS,
+        per_band_render=N_BANDS, per_sharded_step=N_SHARDS, per_eval_view=1,
+        per_view_frame=1,
         replaces=["composite_stream.py:82", "composite.py:167"]),
     "composite_bwd": dict(
         wrapper=composite_bwd_cuda, per_step=1, per_slab_render=N_SLABS,
-        per_band_render=N_BANDS, per_sharded_step=N_SHARDS,
+        per_band_render=N_BANDS, per_sharded_step=N_SHARDS, per_eval_view=0,
+        per_view_frame=0,
         replaces=["composite_stream.py:230", "composite.py:406"]),
     "slab_tmit": dict(
         wrapper=slab_transmittance_cuda, per_step=0,
         per_slab_render=N_SLABS - 1, per_band_render=0, per_sharded_step=0,
-        replaces=["composite.py:326"]),
+        per_eval_view=0, per_view_frame=0, replaces=["composite.py:326"]),
     "scan": dict(wrapper=blocked_cumsum_16_cuda, per_step=0,
                  per_slab_render=0, per_band_render=0,
-                 per_sharded_step=N_SHARDS, replaces=["scan.py:49"]),
+                 per_sharded_step=N_SHARDS, per_eval_view=0,
+                 per_view_frame=0, replaces=["scan.py:49"]),
     "ssim_fwd": dict(wrapper=ssim_fwd_cuda, per_step=1, per_slab_render=0,
-                     per_band_render=0, per_sharded_step=0,
-                     replaces=["ssim_kernel.py:90"]),
+                     per_band_render=0, per_sharded_step=1, per_eval_view=1,
+                     per_view_frame=0, replaces=["ssim_kernel.py:90"]),
     "ssim_bwd": dict(wrapper=ssim_bwd_cuda, per_step=1, per_slab_render=0,
-                     per_band_render=0, per_sharded_step=0,
-                     replaces=["ssim_kernel.py:98"]),
+                     per_band_render=0, per_sharded_step=1, per_eval_view=0,
+                     per_view_frame=0, replaces=["ssim_kernel.py:98"]),
 }
 # the kernels only a backward launches
 BACKWARD_ONLY = ("composite_bwd", "scan")
+# the kernels only a loss launches
+LOSS_ONLY = ("ssim_fwd", "ssim_bwd")
 
 
 def reset_launches():
@@ -1393,7 +1412,8 @@ def sharded_phase(state, cams, cam, gt, cfg, scfg, m_loc, pairs):
                       f"{transient}: radii differ from the single render's")
             got = read_launches()
             check_launches(got, "per_sharded_step", N_POSES,
-                           f"{N_POSES} {transient} renders", backward=False)
+                           f"{N_POSES} {transient} renders", backward=False,
+                           never=LOSS_ONLY)
             total = {k: total[k] + got[k] for k in total}
 
         # one warm-up and N_SHARD_STEPS timed steps from the phase-5 state
@@ -1446,8 +1466,28 @@ def sharded_phase(state, cams, cam, gt, cfg, scfg, m_loc, pairs):
               f"launches in {N_SHARD_STEPS} steps and one gradient call "
               f"{got}, peak memory {peak_gb:.2f} GB", flush=True)
 
-    profile_call("one sharded ring step", lambda: steps["ring"](
-        state, cam, gt, ones, zeros, zeros, bg), n_top=15)
+    # one ring step profiled with the loss's SSIM on the fused kernels, and
+    # with the plain SSIM the sharded loss took before (``losses.ssim`` on
+    # CUDA tensors ran the plain blur), in turns: new, old, old, new, new,
+    # old
+    def ring_step():
+        steps["ring"](state, cam, gt, ones, zeros, zeros, bg)
+
+    def plain_ssim(a, b):
+        return ssim_lib.ssim_map(a, b).mean()
+    busy = {"fused": [], "plain": []}
+    for form in ("fused", "plain", "plain", "fused", "fused", "plain"):
+        fused = losses.ssim
+        if form == "plain":
+            losses.ssim = plain_ssim
+        try:
+            busy[form].append(profile_call(
+                f"one sharded ring step, {form} SSIM", ring_step, n_top=15))
+        finally:
+            losses.ssim = fused
+    print(f"sharded ring step device busy ms: fused SSIM "
+          f"{[round(x, 3) for x in busy['fused']]}, plain SSIM "
+          f"{[round(x, 3) for x in busy['plain']]}", flush=True)
     return total
 
 
@@ -1661,11 +1701,13 @@ def run_loop(src, model, dev, opt_kw, *, tests=(), saves=(), ckpts=(),
 
 def expected_loop_launches(steps, renders, sharded_shards=0):
     """What a loop run launches: per step the compositor pair and the SSIM
-    pair (single) or the compositor pair and the scan once per shard
-    (sharded); one compositor forward per eval render."""
+    pair (single), or the compositor pair and the scan once per shard and
+    the SSIM pair once (sharded); one compositor forward per eval render
+    or bridge frame."""
     if sharded_shards:
         d = sharded_shards * steps
-        want = dict(composite_fwd=d + renders, composite_bwd=d, scan=d)
+        want = dict(composite_fwd=d + renders, composite_bwd=d, scan=d,
+                    ssim_fwd=steps, ssim_bwd=steps)
     else:
         want = dict(composite_fwd=steps + renders, composite_bwd=steps,
                     ssim_fwd=steps, ssim_bwd=steps)
@@ -1682,7 +1724,8 @@ def loop_phase(dev, root):
     """Phase 8: the training loop at full width (run A, then run B resumed
     from run A's checkpoint), with its gates; then the sharded loop.
     Returns the launch counts of the loop (A and B) and of the sharded
-    loop."""
+    loop, and run A's scene, model directory, final state and checkpoint
+    for phase 9."""
     from gsplat_tpu_torch.models.gaussian_model import compact
     from gsplat_tpu_torch.scene import Scene
     from gsplat_tpu_torch.train.checkpoint import load_checkpoint
@@ -1776,7 +1819,7 @@ def loop_phase(dev, root):
           f"load {load_ms:.1f} ms, bit for bit; final PLY re-read equal "
           f"({n} gaussians); eval {evals}; steps {n_steps}; launches "
           f"{launches}; peak memory {peak[0]:.2f} GB", flush=True)
-    del state_a, state_b, scene_b
+    del state_b, scene_b
 
     # the sharded loop: 4 shards, ring
     model_s = os.path.join(root, "loop_sharded")
@@ -1815,7 +1858,438 @@ def loop_phase(dev, root):
           f"capacity {cap} ({cap // N_SHARDS} rows/shard), retries "
           f"{s_retries}, losses {[round(x, 6) for x in losses_s]}, "
           f"launches {shard_launches}", flush=True)
-    return launches, shard_launches
+    return launches, shard_launches, dict(src=src, model=model_a,
+                                          state=state_a, ckpt=ckpt_path)
+
+
+# ---------------------------------------------------------------- phase 9
+# Evaluation and viewing on run A's model of phase 8 (the 1080p COLMAP
+# scene, --eval: 1 test camera, im_000, at R = I, T = 0): the render CLI on
+# the test split, then the metrics CLI with random LPIPS weights written
+# from the seed; the web viewer over HTTP, VIEW_FRAMES orbit frames at
+# 1920x1080; the SIBR bridge on run A's final state (a kernel-path and a
+# python-path frame), then inside a loop resumed from run A's checkpoint
+# for BRIDGE_ITERS iterations, one frame served per iteration.
+VIEW_FRAMES = 5
+BRIDGE_ITERS = 3
+LPIPS_CROP = (192, 256)              # the crop the CPU's LPIPS runs on
+LPIPS_TOL = dict(rtol=1e-4, atol=0)
+BRIDGE_TIMEOUT = 600
+
+
+class CallTimer:
+    """Replaces functions that a CLI looks up at call time with wrappers
+    that synchronise the card around each call and keep its host-clock ms
+    under a label; a factory's functions (``lpips_vgg``) are wrapped the
+    same way. ``timed`` wraps one function by itself."""
+
+    def __init__(self, **targets):
+        import collections
+        self.targets = targets        # label: (module, name, is_factory)
+        self.ms = collections.defaultdict(list)
+
+    def timed(self, label, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.ms[label].append((time.perf_counter() - t) * 1e3)
+            return out
+        return call
+
+    def _factory(self, label, make):
+        def call(*a, **kw):
+            return self.timed(label, make(*a, **kw))
+        return call
+
+    def __enter__(self):
+        self._orig = []
+        for label, (mod, name, factory) in self.targets.items():
+            fn = getattr(mod, name)
+            self._orig.append((mod, name, fn))
+            setattr(mod, name, self._factory(label, fn) if factory
+                    else self.timed(label, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._orig:
+            setattr(mod, name, fn)
+        return False
+
+
+def run_cli(main_fn, argv):
+    """A CLI's main(argv), with sys.stdout kept (the CLIs replace it)."""
+    import sys
+    out = sys.stdout
+    try:
+        main_fn(argv)
+    finally:
+        sys.stdout = out
+
+
+def loop_test_view(dev):
+    """(CameraView, fovx, fovy) of the loop scene's test camera, im_000."""
+    fovx = 1.2
+    fovy = 2 * np.arctan(H / (2 * W / (2 * np.tan(fovx / 2))))
+    return (CameraView.create(np.eye(3), np.zeros(3), fovx, fovy,
+                              device=dev), fovx, fovy)
+
+
+def bridge_payload(cv, fovx, fovy, **over):
+    """A SIBR client request for ``cv`` at W x H: the matrices in the
+    client's row-vector layout, with its y/z column signs."""
+    view = cv.world_view.cpu().numpy().T.copy()
+    view[:, 1:3] *= -1
+    proj = cv.full_proj.cpu().numpy().T.copy()
+    proj[:, 1] *= -1
+    return {"resolution_x": W, "resolution_y": H, "train": False,
+            "fov_y": fovy, "fov_x": fovx, "z_near": 0.01, "z_far": 100.0,
+            "shs_python": False, "rot_scale_python": False,
+            "keep_alive": False, "scaling_modifier": 1.0,
+            "view_matrix": view.flatten().tolist(),
+            "view_projection_matrix": proj.flatten().tolist(), **over}
+
+
+def bridge_client(port, payloads, frames, connected):
+    """A SIBR client: each request after the previous frame, the frames
+    (H,W,3 uint8) kept in ``frames``."""
+    import socket
+
+    def recv_exact(s, n):
+        buf = bytearray()
+        while len(buf) < n:
+            chunk = s.recv(n - len(buf))
+            if not chunk:
+                raise ConnectionError("the bridge closed the connection")
+            buf += chunk
+        return bytes(buf)
+
+    with socket.create_connection(("127.0.0.1", port),
+                                  timeout=BRIDGE_TIMEOUT) as s:
+        connected.set()
+        for p in payloads:
+            data = json.dumps(p).encode()
+            s.sendall(len(data).to_bytes(4, "little") + data)
+            img = recv_exact(s, W * H * 3)
+            recv_exact(s, int.from_bytes(recv_exact(s, 4), "little"))
+            frames.append(np.frombuffer(img, np.uint8).reshape(H, W, 3))
+
+
+def start_client(gui, payloads):
+    """A bridge client thread for ``payloads``, connected before it
+    returns. Returns (thread, frames, errors)."""
+    import threading
+    frames, errors, connected = [], [], threading.Event()
+
+    def run():
+        try:
+            bridge_client(gui.listener.getsockname()[1], payloads, frames,
+                          connected)
+        except Exception as e:   # handed to the main thread, which raises
+            errors.append(e)
+            connected.set()
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    check(connected.wait(BRIDGE_TIMEOUT) and not errors,
+          f"bridge client did not connect: {errors}")
+    return t, frames, errors
+
+
+def eval_view_phase(dev, root, src, model, gauss):
+    """The render CLI on the test split and the metrics CLI with random
+    LPIPS weights; per-view host ms of the render, SSIM, PSNR and LPIPS;
+    the gates; one whole view profiled on ``gauss``, run A's saved model.
+    Returns the launches."""
+    import shutil
+
+    from PIL import Image
+
+    from gsplat_tpu_torch.cli import metrics as metrics_cli
+    from gsplat_tpu_torch.cli import render as render_cli
+    from gsplat_tpu_torch.ops import lpips as lpips_lib
+
+    weights = os.path.join(root, "lpips_random.npz")
+    np.savez(weights, **lpips_lib.random_weights(
+        np.random.default_rng(SEED + 9)))
+    os.environ["GSPLAT_LPIPS_WEIGHTS"] = weights
+    shutil.rmtree(os.path.join(model, "test"), ignore_errors=True)
+    for name in ("results.json", "per_view.json"):
+        if os.path.exists(os.path.join(model, name)):
+            os.remove(os.path.join(model, name))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with CallTimer(render=(rasterize, "render", False),
+                   ssim=(losses, "ssim", False),
+                   psnr=(losses, "psnr", False),
+                   lpips=(lpips_lib, "lpips_vgg", True)) as timer:
+        t = time.perf_counter()
+        run_cli(render_cli.main, ["-s", src, "-m", model, "-r", "1",
+                                  "--eval", "--skip_train", "--quiet",
+                                  "--iteration", str(LOOP_ITERS),
+                                  "--device", str(dev)])
+        render_s = time.perf_counter() - t
+        t = time.perf_counter()
+        run_cli(metrics_cli.main, ["-m", model, "--device", str(dev)])
+        metrics_s = time.perf_counter() - t
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    method = f"ours_{LOOP_ITERS}"
+    renders = sorted(os.listdir(os.path.join(model, "test", method,
+                                             "renders")))
+    n_views = len(renders)
+    check(n_views == 1, f"{n_views} test views, expected 1")
+    with open(os.path.join(model, "results.json")) as f:
+        results = json.load(f)
+    with open(os.path.join(model, "per_view.json")) as f:
+        per_view = json.load(f)
+    check(list(results) == [method] and list(per_view) == [method],
+          f"results for {list(results)}, {list(per_view)}")
+    for k in ("SSIM", "PSNR", "LPIPS"):
+        check(np.isfinite(results[method][k]),
+              f"{k} {results[method][k]} is not finite")
+        check(sorted(per_view[method][k]) == renders, f"per-view {k}")
+    check_launches(launches, "per_eval_view", n_views,
+                   f"the eval of {n_views} view(s)")
+    check(len(timer.ms["render"]) == n_views and
+          all(len(timer.ms[k]) == n_views for k in ("ssim", "psnr", "lpips")),
+          f"timed calls {[(k, len(v)) for k, v in timer.ms.items()]}")
+
+    # the gates, on the view's images as the metrics CLI read them
+    def png(d):
+        with Image.open(os.path.join(model, "test", method, d,
+                                     renders[0])) as im:
+            return torch.tensor(np.asarray(im, np.float32)[..., :3] / 255.0,
+                                device=dev).permute(2, 0, 1)[None]
+    r, g = png("renders"), png("gt")
+    with torch.no_grad():
+        s_card = ssim_lib.ssim(r, g)
+        s_plain = ssim_lib.ssim_map(r, g).mean()
+        check(torch.allclose(s_card, s_plain, **SSIM_TOL),
+              f"ssim on the card {float(s_card)} vs plain {float(s_plain)}")
+        check(abs(float(s_card) - results[method]["SSIM"]) <= 1e-6,
+              "results.json's SSIM is not the card's")
+        fn = lpips_lib.lpips_vgg(device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        lp = fn(r, g)
+        torch.cuda.synchronize()
+        lpips_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        lpips_dev_ms = profile_call("one LPIPS at 1920x1080 (VGG16, f32)",
+                                    lambda: fn(r, g), n_top=8)
+        ch, cw = LPIPS_CROP
+        crop = [x[..., :ch, :cw].contiguous() for x in (r, g)]
+        lp_card = float(fn(*crop))
+        lp_cpu = float(lpips_lib.lpips_vgg(device="cpu")(
+            *(x.cpu() for x in crop)))
+
+        # one whole view on the card: render, SSIM, PSNR and LPIPS
+        cv = loop_test_view(dev)[0]
+        bg = torch.zeros(3, device=dev)
+
+        def one_view():
+            img = rasterize.render(gauss, cv, W, H, bg,
+                                   RasterizerConfig()).image[None]
+            return (float(ssim_lib.ssim(img, g)),
+                    float(losses.psnr(img, g).mean()), float(fn(img, g)))
+        one_view()
+        torch.cuda.reset_peak_memory_stats()
+        view_dev_ms = profile_call("one eval view (render, SSIM, PSNR, "
+                                   "LPIPS)", one_view, n_top=8)
+        view_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(np.isclose(lp_card, lp_cpu, **LPIPS_TOL),
+          f"LPIPS on the card {lp_card} vs the CPU {lp_cpu}")
+    check(abs(float(lp) - results[method]["LPIPS"]) <=
+          1e-5 * abs(float(lp)), "results.json's LPIPS")
+    ms = {k: [round(x, 3) for x in v] for k, v in timer.ms.items()}
+    print(f"eval {W}x{H}, run A's model ({n_views} test view): render CLI "
+          f"{render_s:.2f} s, metrics CLI {metrics_s:.2f} s; per view ms "
+          f"(host clock, synchronised) {ms}; results {results[method]}; "
+          f"ssim card vs plain {abs(float(s_card) - float(s_plain)):.3e}; "
+          f"LPIPS {LPIPS_CROP[1]}x{LPIPS_CROP[0]} crop card {lp_card:.7f} "
+          f"vs CPU {lp_cpu:.7f}; LPIPS peak memory {lpips_peak_gb:.2f} GB, "
+          f"device {lpips_dev_ms:.3f} ms; one whole view device busy "
+          f"{view_dev_ms:.3f} ms, peak memory {view_peak_gb:.2f} GB; eval "
+          f"CLIs' peak memory {peak_gb:.2f} GB; launches {launches}",
+          flush=True)
+    return launches
+
+
+def web_phase(dev, g, n_live):
+    """The web viewer on ``g``, run A's saved model, in a server thread: /,
+    /info, one warm-up frame, then VIEW_FRAMES orbit frames at W x H over
+    HTTP, with the render and PNG encode ms of each. Returns the
+    launches."""
+    import io
+    import threading
+    import urllib.request
+
+    from PIL import Image
+
+    from gsplat_tpu_torch.viewer import web
+    server = web.ViewerServer(g, port=0, device=dev)
+    orig = server.render_rgb
+    timer = CallTimer()
+    server.render_rgb = timer.timed("render", orig)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.port}"
+    r = 2 * server.extent             # the page's starting radius
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=600) as resp:
+            check(resp.status == 200, f"GET {path}: HTTP {resp.status}")
+            return resp.read()
+    try:
+        check(b"canvas" in get("/"), "the viewer page")
+        info = json.loads(get("/info"))
+        check(info["n"] == n_live, f"/info n {info['n']}, live {n_live}")
+        get(f"/render?theta=-0.5&phi=0.2&r={r}&w={W}&h={H}")   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        timer.ms.clear()
+        total_ms, encode_ms = [], []
+        for i in range(VIEW_FRAMES):
+            t = time.perf_counter()
+            body = get(f"/render?theta={0.3 * i}&phi=0.1&r={r}&w={W}&h={H}")
+            total_ms.append((time.perf_counter() - t) * 1e3)
+            img = np.asarray(Image.open(io.BytesIO(body)))
+            check(img.shape == (H, W, 3) and img.dtype == np.uint8,
+                  f"web frame {i}: {img.shape} {img.dtype}")
+            check(float(img.std()) > 0, f"web frame {i} is blank")
+            t = time.perf_counter()          # the same encode, host only
+            Image.fromarray(img).save(io.BytesIO(), format="PNG")
+            encode_ms.append((time.perf_counter() - t) * 1e3)
+        launches = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        server.shutdown()
+        thread.join(timeout=60)
+    check(not thread.is_alive(), "the web server did not stop")
+    check_launches(launches, "per_view_frame", VIEW_FRAMES,
+                   f"{VIEW_FRAMES} web frames")
+    cam = web._orbit_camera(server.center, 0.0, 0.1, r, 1.0,
+                            2 * np.arctan(np.tan(0.5) * H / W), device=dev)
+    with torch.no_grad():
+        out = rasterize.render(g, cam, W, H, server.bg, server.rcfg)
+        check(int(out.overflow) == 0, f"web frame overflow {int(out.overflow)}")
+    dev_ms = profile_call("one web frame's render (render_rgb)",
+                          lambda: orig(theta=0.0, phi=0.1, radius=r, W=W,
+                                       H=H), n_top=8)
+    print(f"web viewer {W}x{H}, {n_live} gaussians, radius {r:.3f}: frame ms "
+          f"over HTTP {[round(x, 3) for x in total_ms]} (median "
+          f"{np.median(total_ms):.3f}), of which render (host clock, to the "
+          f"uint8 frame on the host) "
+          f"{[round(x, 3) for x in timer.ms['render']]} and "
+          f"PNG encode (host) {[round(x, 3) for x in encode_ms]}; one "
+          f"frame's render device busy {dev_ms:.3f} ms; pairs of frame 0 "
+          f"{int(out.num_pairs)}; peak memory {peak_gb:.2f} GB; launches "
+          f"{launches}", flush=True)
+    return launches
+
+
+def bridge_phase(dev, root, src, state, ckpt):
+    """The SIBR bridge: (a) two W x H requests with train false (kernel
+    path, then both python paths) on run A's final state, the frames within
+    1 in uint8; (b) the loop resumed from run A's checkpoint for
+    BRIDGE_ITERS iterations with one train-true request per iteration, every
+    frame served. Returns the launches of (a) and of (b)."""
+    from gsplat_tpu_torch.config import PipelineConfig
+    from gsplat_tpu_torch.viewer.network_gui import NetworkGUI, ViewerRequest
+
+    cv, fovx, fovy = loop_test_view(dev)
+    bg = torch.zeros(3, device=dev)
+    rcfg = RasterizerConfig()
+    payloads = [bridge_payload(cv, fovx, fovy),
+                bridge_payload(cv, fovx, fovy, shs_python=True,
+                               rot_scale_python=True)]
+    gui = NetworkGUI("127.0.0.1", 0, device=dev)
+    orig = gui._render_frame
+    timer = CallTimer()
+    gui._render_frame = timer.timed("frame", orig)
+    try:
+        # (a) outside training: poll serves until the client hangs up
+        torch.cuda.synchronize()
+        reset_launches()
+        t, frames, errors = start_client(gui, payloads)
+        deadline = time.time() + BRIDGE_TIMEOUT
+        while t.is_alive() and time.time() < deadline:
+            gui.poll(state, None, PipelineConfig(), rcfg, bg, LOOP_ITERS,
+                     LOOP_ITERS)
+            time.sleep(0.001)
+        t.join(timeout=60)
+        check(not errors and len(frames) == 2,
+              f"bridge: {len(frames)} frames, errors {errors}")
+        view_launches = read_launches()
+        want = {n: 2 if n == "composite_fwd" else 0 for n in KERNELS}
+        check(view_launches == want,
+              f"bridge launches {view_launches}, expected {want}")
+        diff = int(np.abs(frames[0].astype(int)
+                          - frames[1].astype(int)).max())
+        check(diff <= 1, f"python-path frame {diff} from the kernel path")
+        check(all(float(f.std()) > 0 for f in frames), "blank bridge frame")
+        req = ViewerRequest.parse(payloads[0])
+        with torch.no_grad():
+            out = rasterize.render(state.gaussians, cv, W, H, bg, rcfg)
+            check(int(out.overflow) == 0, "bridge frame overflow")
+        dev_ms = profile_call("one bridge frame's render (_render_frame)",
+                              lambda: orig(state, req, rcfg,
+                                           PipelineConfig(), bg), n_top=8)
+        a_ms = timer.ms.pop("frame")
+
+        # (b) inside training, from run A's checkpoint at LOOP_CKPT
+        reset_launches()
+        t, frames, errors = start_client(
+            gui, [dict(payloads[0], train=True)] * BRIDGE_ITERS)
+        model_c = os.path.join(root, "loop_bridge")
+        _, _, probe, tee, sec = run_loop(
+            src, model_c, dev,
+            dict(LOOP_OPT, iterations=LOOP_CKPT + BRIDGE_ITERS), start=ckpt,
+            network_gui_server=gui)
+        t.join(timeout=60)
+        loop_launches = read_launches()
+    finally:
+        gui.close()
+    check(not errors and len(frames) == BRIDGE_ITERS,
+          f"bridge in the loop: {len(frames)} frames of {BRIDGE_ITERS}, "
+          f"errors {errors}")
+    check(all(float(f.std()) > 0 for f in frames), "blank bridge frame")
+    steps = BRIDGE_ITERS + tee.count("retrying frame")
+    check(probe.steps == steps, f"{probe.steps} steps, expected {steps}")
+    want = expected_loop_launches(steps, BRIDGE_ITERS)
+    check(loop_launches == want,
+          f"bridge loop launches {loop_launches}, expected {want}")
+    iter_ms = [r["iter_time"] * 1e3 for r in loop_log(model_c)
+               if "iter_time" in r]
+    print(f"SIBR bridge {W}x{H}: outside training, frame ms (host clock, "
+          f"to the bytes on the host) {[round(x, 3) for x in a_ms]} "
+          f"(kernel path, python paths; max |diff| {diff} in uint8), one "
+          f"frame's device busy {dev_ms:.3f} ms, launches {view_launches}; "
+          f"in the loop from iteration {LOOP_CKPT}: {BRIDGE_ITERS} "
+          f"iterations in {sec:.2f} s (iteration ms, iter_time: "
+          f"{[round(x, 3) for x in iter_ms]}), frame ms "
+          f"{[round(x, 3) for x in timer.ms['frame']]}, {len(frames)} "
+          f"frames served, "
+          f"launches {loop_launches}", flush=True)
+    return view_launches, loop_launches
+
+
+def view_phase(dev, root, src, model, state, ckpt):
+    """Phase 9: evaluation, the web viewer and the SIBR bridge on run A.
+    Returns the launch counts of the eval, of the viewers' frames outside
+    training and of the loop under the bridge."""
+    from gsplat_tpu_torch.viewer.web import load_gaussians_from_ply
+    g = load_gaussians_from_ply(os.path.join(
+        model, "point_cloud", f"iteration_{LOOP_ITERS}", "point_cloud.ply"),
+        device=dev)
+    eval_launches = eval_view_phase(dev, root, src, model, g)
+    web_launches = web_phase(dev, g, state.gaussians.num_active())
+    bridge_launches, loop_launches = bridge_phase(dev, root, src, state, ckpt)
+    view_launches = {k: web_launches[k] + bridge_launches[k]
+                     for k in KERNELS}
+    return eval_launches, view_launches, loop_launches
 
 
 def main():
@@ -1969,8 +2443,12 @@ def main():
 
     # ---- phase 8: the training loop at full width, then sharded
     del state
-    loop_counts, loop_sharded_launches = loop_phase(
+    loop_counts, loop_sharded_launches, run_a = loop_phase(
         dev, os.path.join(REPO, "build", "chip_smoke"))
+
+    # ---- phase 9: evaluation and viewing on run A's model
+    eval_launches, view_launches, bridge_launches = view_phase(
+        dev, os.path.join(REPO, "build", "chip_smoke"), **run_a)
 
     kernels = []
     for name, k in KERNELS.items():
@@ -1979,7 +2457,9 @@ def main():
                    "slab": slab_launches[name], "band": band_launches[name],
                    "sharded": sharded_launches[name],
                    "loop": loop_counts[name],
-                   "loop_sharded": loop_sharded_launches[name]}
+                   "loop_sharded": loop_sharded_launches[name],
+                   "eval": eval_launches[name], "view": view_launches[name],
+                   "loop_bridge": bridge_launches[name]}
         check(any(by_path.values()), f"{name} was launched on no path")
         n = numbers[name]
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"):

@@ -81,18 +81,27 @@ def main(argv=None):
     # multi-host bring-up (JAX: init_distributed) is not ported; one process
     if args.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)
+    server = None
     if not args.disable_viewer:
-        print("viewer bridge disabled: not ported to gsplat_tpu_torch")
+        from gsplat_tpu_torch.viewer.network_gui import NetworkGUI
+        try:
+            server = NetworkGUI(args.ip, args.port, device=device)
+        except OSError as e:
+            print(f"viewer bridge disabled: {e}")
 
     from gsplat_tpu_torch.train.loop import train
-    train(dataset, opt, pipe, rcfg, args.test_iterations,
-          args.save_iterations, args.checkpoint_iterations,
-          args.start_checkpoint, quiet=args.quiet,
-          data_parallel=args.data_parallel,
-          checkpoint_interval=args.checkpoint_interval,
-          shard_gaussians=args.shard_gaussians,
-          shard_transient=args.shard_transient, device=device,
-          n_shards=args.shards)
+    try:
+        train(dataset, opt, pipe, rcfg, args.test_iterations,
+              args.save_iterations, args.checkpoint_iterations,
+              args.start_checkpoint, network_gui_server=server,
+              quiet=args.quiet, data_parallel=args.data_parallel,
+              checkpoint_interval=args.checkpoint_interval,
+              shard_gaussians=args.shard_gaussians,
+              shard_transient=args.shard_transient, device=device,
+              n_shards=args.shards)
+    finally:
+        if server is not None:
+            server.close()
     print("\nTraining complete.")
 
 

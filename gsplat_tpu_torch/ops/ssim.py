@@ -6,7 +6,8 @@ The blur is eleven shifted weighted adds per axis, vertical then
 horizontal, as in the JAX package. It is not a ``conv2d``: on the card
 cuDNN would run that in TF32, whose error makes blur(x²) − mu² go negative.
 The plain form here is the CPU route, the differentiable oracle, and the
-version the CUDA kernels (ops/kernels/ssim.py) are held to.
+version the CUDA kernels (ops/kernels/ssim.py) are held to; ``ssim`` and
+``fast_ssim`` on CUDA tensors launch those kernels.
 """
 from __future__ import annotations
 
@@ -73,7 +74,22 @@ def ssim_map(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
 
 def ssim(img1: torch.Tensor, img2: torch.Tensor,
          window_size: int = 11) -> torch.Tensor:
-    """Mean SSIM."""
+    """Mean SSIM of (..., C, H, W) images. CPU tensors take the plain form.
+    CUDA tensors take the fused kernel (ops/kernels/ssim.py) with the
+    leading axes flattened into channels, which is exact since SSIM works
+    per channel. The kernel has 11 taps and treats img2 as a constant, so
+    on CUDA another window, or an img2 that wants a gradient, raises."""
+    if img1.device.type == "cuda":
+        if window_size != 11:
+            raise ValueError(f"ssim on CUDA takes window_size 11 only (the "
+                             f"fused kernel's taps), got {window_size}")
+        if img2.requires_grad:
+            raise ValueError("ssim on CUDA treats img2 as a constant; got an "
+                             "img2 that requires a gradient")
+        from gsplat_tpu_torch.ops.kernels.ssim import ssim_map_fused
+        H, W = img1.shape[-2:]
+        return ssim_map_fused(img1.reshape(-1, H, W),
+                              img2.reshape(-1, H, W)).mean()
     return ssim_map(img1, img2, window_size).mean()
 
 

@@ -446,7 +446,9 @@ def make_sharded_train_step(n_shards: int, *, image_width: int,
     """Build the sharded train step: (state, cam, gt, alpha_mask,
     invdepth_gt, depth_mask, bg) -> (state, StepAux), with the semantics of
     ``trainer.train_step`` and every per-gaussian quantity in row shards.
-    The loss takes ``losses.ssim``, as the JAX package's sharded step does.
+    The loss takes ``losses.ssim``, as the JAX package's sharded step does
+    (on the card, the fused SSIM kernels: one forward and one backward
+    launch per step).
     Adam and the statistics are elementwise, so they update every shard's
     rows where they lie."""
 

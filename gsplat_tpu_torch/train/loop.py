@@ -20,9 +20,10 @@ Branches: with ``shard_gaussians`` and ``n_shards > 1`` the state is held in
 ``n_shards`` row shards and each step runs
 ``parallel/sharded.py:make_sharded_train_step`` (JAX takes the mesh size as
 the shard count; one card holds the shards one after another). The camera
-data-parallel forms and the viewer bridge are not ported: ``data_parallel``
-changes nothing with one visible device, as in JAX, and raises with more;
-``network_gui_server`` must be None.
+data-parallel forms are not ported: ``data_parallel`` changes nothing with
+one visible device, as in JAX, and raises with more. A
+``network_gui_server`` (viewer/network_gui.py) is polled at the top of
+every iteration, as in JAX; an error of its render raises out of ``train``.
 """
 from __future__ import annotations
 
@@ -75,8 +76,6 @@ def train(dataset: ModelConfig, opt: OptimizationConfig, pipe: PipelineConfig,
           n_shards: int = 1):
     """Run the full optimization on ``device``. Returns (scene, state)."""
     dev = resolve_device(device)
-    if network_gui_server is not None:
-        raise NotImplementedError("the viewer bridge is not ported")
     n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
     if data_parallel and n_dev > 1:
         raise NotImplementedError(
@@ -142,6 +141,11 @@ def train(dataset: ModelConfig, opt: OptimizationConfig, pipe: PipelineConfig,
             os.path.join(scene.model_path, "checkpoints"))
 
     for iteration in range(first_iter + 1, opt.iterations + 1):
+        if network_gui_server is not None:
+            network_gui_server.poll(state, scene, pipe, rcfg, bg_color,
+                                    iteration, opt.iterations,
+                                    dataset.train_test_exp)
+
         if not viewpoint_stack:
             viewpoint_stack = list(scene.getTrainCameras())
         cam = viewpoint_stack.pop(random.randint(0, len(viewpoint_stack) - 1))

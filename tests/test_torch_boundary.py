@@ -1,7 +1,8 @@
 """The port's import boundary and device contract.
 
-gsplat_tpu_torch, chip_smoke.py and the A/B scripts (compositor_ab.py,
-ssim_ab.py) import neither JAX nor anything of the gsplat_tpu package, and
+gsplat_tpu_torch, chip_smoke.py, the A/B scripts (compositor_ab.py,
+ssim_ab.py) and the port's root CLIs (``*_torch.py``) import neither JAX
+nor anything of the gsplat_tpu package, and
 the port's entry points run on CUDA unless the caller asks for the CPU:
 without CUDA they raise instead of carrying on.
 """
@@ -24,6 +25,7 @@ names = [m.name for m in pkgutil.walk_packages(gsplat_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 import chip_smoke, compositor_ab, ssim_ab
+import metrics_torch, full_eval_torch, convert_torch, view_torch
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "gsplat_tpu"
              or m.startswith("gsplat_tpu."))
@@ -54,7 +56,12 @@ def test_port_imports_no_jax_and_no_gsplat_tpu():
                 "gsplat_tpu_torch.cli.train", "gsplat_tpu_torch.train.loop",
                 "gsplat_tpu_torch.train.checkpoint",
                 "gsplat_tpu_torch.utils.telemetry",
-                "gsplat_tpu_torch.utils.debug"):
+                "gsplat_tpu_torch.utils.debug",
+                "gsplat_tpu_torch.ops.lpips", "gsplat_tpu_torch.cli.metrics",
+                "gsplat_tpu_torch.cli.full_eval",
+                "gsplat_tpu_torch.cli.convert", "gsplat_tpu_torch.cli.view",
+                "gsplat_tpu_torch.viewer.network_gui",
+                "gsplat_tpu_torch.viewer.web"):
         assert mod in res["modules"]
 
 
@@ -110,3 +117,43 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         loop.train(*cfgs)
     with pytest.raises(ValueError, match="Could not recognize scene type"):
         loop.train(*cfgs, device="cpu")
+
+    # evaluation and viewing
+    from gsplat_tpu_torch.cli import full_eval as full_eval_cli
+    from gsplat_tpu_torch.cli import metrics as metrics_cli
+    from gsplat_tpu_torch.cli import view as view_cli
+    from gsplat_tpu_torch.ops import lpips
+    from gsplat_tpu_torch.scene import ply as ply_lib
+    from gsplat_tpu_torch.viewer import network_gui, web
+    from PIL import Image
+    for d in ("renders", "gt"):
+        (tmp_path / "test" / "ours_1" / d).mkdir(parents=True)
+        Image.fromarray(np.full((8, 8, 3), 90, np.uint8)).save(
+            tmp_path / "test" / "ours_1" / d / "00000.png")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        metrics_cli.main(["-m", str(tmp_path)])
+    metrics_cli.main(["-m", str(tmp_path), "--device", "cpu", "--no_lpips"])
+    assert (tmp_path / "results.json").exists()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        full_eval_cli.main(["--output_path", str(tmp_path / "eval")])
+    assert not (tmp_path / "eval").exists()
+    full_eval_cli.main(["--output_path", str(tmp_path), "--device", "cpu"])
+    assert (tmp_path / "timing.txt").read_text() == ""  # no dataset given
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        view_cli.main(["-m", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lpips.lpips_vgg()
+    ply = str(tmp_path / "point_cloud.ply")
+    ply_lib.save_gaussian_ply(ply, *(arrays[k] for k in (
+        "xyz", "f_dc", "f_rest", "opacity", "scaling", "rotation")))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        web.load_gaussians_from_ply(ply)
+    g = web.load_gaussians_from_ply(ply, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        web.ViewerServer(g, port=0)
+    web.ViewerServer(g, port=0, device="cpu").httpd.server_close()
+    # the bridge renders on its device: without CUDA it cannot be made
+    # for one, so no frame of its can reach for the card
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        network_gui.NetworkGUI("127.0.0.1", 0)
+    network_gui.NetworkGUI("127.0.0.1", 0, device="cpu").close()

@@ -9,6 +9,8 @@ version on the same inputs:
   partial maps its launch can write, which are held to
   ``ssim_partials_plain`` at that gate; the backward (one launch from the
   partial maps) also against ``ssim_bwd_plain``, on ragged tiles too;
+  ``ssim`` of a batch on the card through the kernels against ``ssim`` on
+  the CPU; LPIPS on the card against the CPU's (rtol 1e-4);
 - the slab transmittance: rtol 1e-5 / atol 1e-6 against its plain version,
   and the compositor kernel's cut-free t_final bit for bit, on a rendered
   frame and on the rows that try the cull rectangle (both kernels cull);
@@ -526,13 +528,59 @@ def test_ssim_kernels_match_plain(cuda_device):
     assert (kssim.ssim_fwd_cuda.launches, kssim.ssim_bwd_cuda.launches) == (
         before[0] + 1, before[1] + 1)
     y = a.clone().requires_grad_()
-    tssim.ssim(y, b).backward()
-    torch.testing.assert_close(v.detach(), tssim.ssim(a, b), rtol=1e-5,
-                               atol=1e-6)
+    tssim.ssim_map(y, b).mean().backward()      # the plain form
+    torch.testing.assert_close(v.detach(), tssim.ssim_map(a, b).mean(),
+                               rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(x.grad, y.grad, **SSIM_GRAD_TOL)
     with torch.no_grad():                       # no partial maps, same map
         torch.testing.assert_close(tssim.fast_ssim(a, b), v.detach(),
                                    rtol=0, atol=0)
+
+
+def test_ssim_on_card_takes_the_kernel_and_matches_cpu(cuda_device):
+    """``ssim`` of a (2,3,H,W) batch on the card: one forward launch (one
+    backward under autograd), the leading axes flattened into the kernel's
+    channels; the value within rtol 1e-5 / atol 1e-6 of ``ssim`` on the
+    CPU, the img1 gradient within the SSIM gradient gate of the CPU's. A
+    window other than 11, or an img2 that wants a gradient, raises."""
+    a, b, _ = _images(cuda_device, shape=(2, 3, 70, 90), patch=False)
+    before = (kssim.ssim_fwd_cuda.launches, kssim.ssim_bwd_cuda.launches)
+    x = a.clone().requires_grad_()
+    v = tssim.ssim(x, b)
+    v.backward()
+    torch.cuda.synchronize()
+    assert (kssim.ssim_fwd_cuda.launches, kssim.ssim_bwd_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    xc = a.cpu().requires_grad_()
+    vc = tssim.ssim(xc, b.cpu())
+    vc.backward()
+    torch.testing.assert_close(v.detach().cpu(), vc.detach(), rtol=1e-5,
+                               atol=1e-6)
+    torch.testing.assert_close(x.grad.cpu(), xc.grad, **SSIM_GRAD_TOL)
+    with pytest.raises(ValueError, match="window_size 11"):
+        tssim.ssim(a, b, window_size=7)
+    with pytest.raises(ValueError, match="img2"):
+        tssim.ssim(a, b.clone().requires_grad_())
+
+
+def test_lpips_on_card_matches_cpu(cuda_device, tmp_path, monkeypatch):
+    """LPIPS with random weights on the card (cuDNN's convolutions, TF32
+    off) within rtol 1e-4 of the CPU's, on the same 2 x 3 x 96 x 128
+    batch."""
+    from gsplat_tpu_torch.ops import lpips
+    rng = np.random.default_rng(4)
+    path = tmp_path / "lpips_random.npz"
+    np.savez(path, **lpips.random_weights(rng))
+    monkeypatch.setenv("GSPLAT_LPIPS_WEIGHTS", str(path))
+    x = rng.uniform(0, 1, (2, 3, 96, 128)).astype(np.float32)
+    y = np.clip(x + 0.1 * rng.standard_normal(x.shape), 0, 1).astype(
+        np.float32)
+    got = lpips.lpips_vgg(device=cuda_device)(
+        torch.tensor(x, device=cuda_device), torch.tensor(y,
+                                                          device=cuda_device))
+    want = lpips.lpips_vgg(device="cpu")(torch.tensor(x), torch.tensor(y))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=0)
+    assert not torch.backends.cudnn.allow_tf32
 
 
 @pytest.mark.parametrize("shape", [(1, 1, 1), (2, 33, 65), (3, 70, 200),

@@ -104,6 +104,22 @@ def test_ssim_matches_jax_and_fused_kernel(rng, route):
                                got[0], rtol=1e-6)
 
 
+def test_ssim_of_a_batch_matches_jax(rng):
+    """``ssim`` of a (2,3,H,W) batch: the mean over every channel of every
+    image, as JAX's ``ssim`` takes it (on the card the leading axes are
+    flattened into the fused kernel's channels; tests/test_torch_cuda.py
+    holds that to this CPU form)."""
+    a = rng.uniform(0, 1, (2,) + SHAPE).astype(np.float32)
+    b = np.clip(a + 0.2 * rng.standard_normal(a.shape).astype(np.float32),
+                0, 1)
+    got = float(tssim.ssim(torch.tensor(a), torch.tensor(b)))
+    want = float(jssim.ssim(jnp.asarray(a), jnp.asarray(b)))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    flat = float(tssim.ssim(torch.tensor(a.reshape((-1,) + SHAPE[1:])),
+                            torch.tensor(b.reshape((-1,) + SHAPE[1:]))))
+    np.testing.assert_allclose(flat, got, rtol=1e-6)
+
+
 def test_variance_clamp_matches_fused_kernel(rng):
     a, b, wts = _images(rng, zero_patch=True)
     at = torch.tensor(a)
