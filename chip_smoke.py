@@ -76,12 +76,26 @@ Phases, each printing its own line:
    viewer in a server thread over HTTP (``/``, ``/info``, 5 orbit frames
    at 1920x1080); the SIBR bridge on run A's final state (a kernel-path
    and a python-path frame) and inside a loop resumed from run A's
-   checkpoint, one frame per iteration; exact launch counts on each.
+   checkpoint, one frame per iteration; exact launch counts on each;
+10. camera data parallelism on the one card: (a) a world of one rank over
+   NCCL, from an environment the script sets, on phase 5's scene: 1 + 5 DP
+   steps with exact launches, the DP step bit for bit ``train_step``'s from
+   the same state (both under torch's deterministic algorithms), one
+   profiled DP step with the all-reduce's device time; (b) two ranks in two
+   processes of this script (``--dp-rank``) sharing the card over gloo,
+   each with one of phase 8's 1080p cameras: one DP step bit for bit the
+   two-camera step in one process, the ranks' states equal, then
+   ``train(..., data_parallel=True)`` on phase 8's scene for 20 iterations
+   with a densify event, the ranks' final states and batches equal, only
+   rank 0's files there, the all-reduces' share of an iteration; (c) the
+   2-D step (2 ranks x 2 local row shards, ring) against the two-camera
+   step at phase 7's gates; exact launches on each.
 Then a ``kernels`` JSON line with one object per kernel of the KERNELS
 table, the nvidia-smi line, and a final JSON line.
 Any failure raises and exits non-zero; without CUDA it exits non-zero
 before printing any result.
 """
+import contextlib
 import dataclasses
 import functools
 import json
@@ -1058,7 +1072,7 @@ def train_phase(g, cam, gt, cfg):
           f"launches {launches}, peak memory {peak_gb:.2f} GB, visible "
           f"{int(vis.sum())}, non-zero xyz grad on {nonzero:.4f} of them, "
           f"max |xyz change| {moved:.3e}", flush=True)
-    return state, launches
+    return state, launches, float(np.median(step_ms))
 
 
 def l1_grads(render, g, gt):
@@ -2292,6 +2306,493 @@ def view_phase(dev, root, src, model, state, ckpt):
     return eval_launches, view_launches, loop_launches
 
 
+# ---------------------------------------------------------------- phase 10
+# Camera data parallelism (parallel/mesh.py, parallel/dp.py, the 2-D step of
+# parallel/sharded.py, the loop's data-parallel branch) on the one card:
+# 10a a world of one rank over NCCL in this process, on phase 5's scene;
+# 10b two ranks in two processes that share the card over gloo (NCCL
+# refuses two ranks on one card), each with one of phase 8's 1080p cameras:
+# one DP step against the two-camera step in one process, then the loop;
+# 10c the 2-D step, 2 ranks x DP_SHARDS local row shards, ring. A rank is
+# this script started again with ``--dp-rank <spec>``.
+DP_STEPS = 5
+DP_RANKS = 2
+DP_SHARDS = 2
+DP_LOOP_ITERS = 20
+DP_LOOP_OPT = dict(LOOP_OPT, iterations=DP_LOOP_ITERS)   # densify at 15
+DP_TIMEOUT = 600           # seconds for both ranks of 10b and 10c together
+DP_GROUP_TIMEOUT = 120     # a collective waits no longer for a rank
+DP_SUM_FLOATS = 59 + 2     # per row: the gradients, accum and denom
+DP_MAX_BYTES = 8           # per row of the max buffer (float64 radii)
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms (the entry gather's index_add_
+    backward without atomics) around the calls held bit for bit."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def aux_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def state_digest(state):
+    import hashlib
+    from gsplat_tpu_torch.train.checkpoint import state_items
+    h = hashlib.sha256()
+    for name, x in state_items(state):
+        h.update(name.encode())
+        h.update(np.ascontiguousarray(x).tobytes())
+    return h.hexdigest()[:16]
+
+
+def collective_ms(prof):
+    """Device ms of the collective's own ops in a profile: NCCL's kernels,
+    and the device-to-device copies a world of one may make instead."""
+    from torch.autograd import DeviceType
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and ("nccl" in e.key.lower() or "dtod" in e.key.lower())]
+    return sum(r[1] for r in rows), rows
+
+
+def dp_nccl_phase(g, cam, gt, cfg, train_median_ms):
+    """10a: a world of one rank over NCCL, from an environment set here: 1 +
+    DP_STEPS DP steps with exact launches, each beside a ``train_step`` in
+    turns for the host clock, the DP step against
+    ``train_step`` bit for bit from the same state (both under torch's
+    deterministic algorithms, train_step twice first to show they make it
+    reproducible), one profiled DP step with the all-reduce's device time.
+    Returns the launch counts of the timed steps."""
+    import torch.distributed as dist
+
+    from gsplat_tpu_torch.parallel import dp as dp_lib
+    from gsplat_tpu_torch.parallel import mesh as mesh_lib
+    from gsplat_tpu_torch.utils.general import resolve_device
+    from torch.profiler import ProfilerActivity, profile
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+               WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    dev = gt.device
+    opt = OptimizationConfig()
+    ones = torch.ones((1, H, W), device=dev)
+    zeros = torch.zeros((1, H, W), device=dev)
+    inputs = (cam, gt, ones, zeros, zeros, torch.zeros(3, device=dev))
+    try:
+        check(mesh_lib.init_distributed(), "init_distributed did not join")
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"backend {dist.get_backend()}, {dist.get_world_size()} ranks")
+        check(resolve_device("cuda") == torch.device("cuda", 0),
+              "the rank's card")
+        mesh = mesh_lib.make_mesh((("data", -1),))
+        step = dp_lib.make_dp_train_step(
+            mesh, image_width=W, image_height=H, opt=opt, rcfg=cfg,
+            spatial_lr_scale=1.0)
+        state, aux = step(trainer.init_state(g, 1), *inputs)     # warm-up
+        train(state, cam, gt, cfg, opt)
+        torch.cuda.synchronize()
+        # DP_STEPS DP steps, each beside a train_step from the same state
+        # in turns (train, DP, DP, train, ...): the host-clock ms to the
+        # synchronise and to the call's return (the enqueue); the launches
+        # of the DP steps alone
+        ms = {"dp": [], "train": []}
+        queued = {"dp": [], "train": []}
+        launches = {name: 0 for name in KERNELS}
+        step_losses = []
+        for i in range(DP_STEPS):
+            for form in ("train", "dp")[::1 - 2 * (i % 2)]:
+                before = read_launches()
+                t = time.perf_counter()
+                if form == "dp":
+                    state, aux = step(state, *inputs)
+                else:
+                    train(state, cam, gt, cfg, opt)
+                queued[form].append((time.perf_counter() - t) * 1e3)
+                torch.cuda.synchronize()
+                ms[form].append((time.perf_counter() - t) * 1e3)
+                if form == "dp":
+                    launches = {k: v + read_launches()[k] - before[k]
+                                for k, v in launches.items()}
+            step_losses.append(float(aux.loss))
+            check(int(aux.overflow) == 0, f"DP step overflow {int(aux.overflow)}")
+        step_ms = ms["dp"]
+        check_launches(launches, "per_step", DP_STEPS,
+                       f"{DP_STEPS} DP steps over NCCL")
+        check(all(np.isfinite(step_losses)), f"DP losses {step_losses}")
+
+        with deterministic():
+            s1, a1 = train(state, cam, gt, cfg, opt)
+            s2, a2 = train(state, cam, gt, cfg, opt)
+            sd, ad = step(state, *inputs)
+            torch.cuda.synchronize()
+        check(states_equal(s1, s2) and aux_equal(a1, a2),
+              "train_step is not reproducible under deterministic "
+              "algorithms: the bit-for-bit gate cannot hold")
+        check(states_equal(sd, s1) and aux_equal(ad, a1),
+              "the DP step over NCCL differs from train_step")
+        del s1, s2, sd
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            step(state, *inputs)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        busy = print_profile("one DP step over NCCL, world of one", prof,
+                             wall_ms, 15)
+        coll_ms, coll_rows = collective_ms(prof)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    sum_mb = g.capacity * DP_SUM_FLOATS * 4 / 1e6
+    print(f"dp nccl, world of one, {W}x{H}, {N_GAUSS} gaussians: step ms "
+          f"{[round(x, 3) for x in step_ms]} (median "
+          f"{np.median(step_ms):.3f}; train_step in turns "
+          f"{[round(x, 3) for x in ms['train']]}, median "
+          f"{np.median(ms['train']):.3f}; phase 5's train step median "
+          f"{train_median_ms:.3f} in this run), ms to the call's return "
+          f"(enqueue) median {np.median(queued['dp']):.3f} DP, "
+          f"{np.median(queued['train']):.3f} train_step, losses "
+          f"{[round(x, 6) for x in step_losses]}, state and aux bit for bit "
+          f"train_step's (train_step twice the same bits), all-reduce "
+          f"{sum_mb:.1f} MB summed + {g.capacity * DP_MAX_BYTES / 1e6:.1f} "
+          f"MB maxed per step, its device time {coll_ms:.3f} ms of "
+          f"{busy:.3f} busy ({[(k[:60], round(ms, 3), n) for k, ms, n in coll_rows]}), "
+          f"launches {launches}", flush=True)
+    return launches
+
+
+def two_camera_reference(state, views, opt, cfg):
+    """The batch's step in one process: each view's ``camera_loss_grads``
+    from ``state``, summed in rank order and divided by the batch, the
+    statistics summed and maxed, ``finish_train_step``. Returns (state,
+    loss, the batch's gradients by field, accum increment, visible)."""
+    from gsplat_tpu_torch.train import densify as densify_lib
+    n = len(views)
+    stepc = state.step + 1
+    outs = [trainer.camera_loss_grads(
+        state.gaussians, state.exposure, *v, stepc, image_width=W,
+        image_height=H, opt=opt, rcfg=cfg, antialiasing=False,
+        train_test_exp=False, use_depth=False) for v in views]
+    check(all(int(o[3].overflow) == 0 for o in outs), "reference overflow")
+
+    def total(fn):
+        acc = fn(outs[0])
+        for o in outs[1:]:
+            acc = acc + fn(o)
+        return acc
+
+    grads = {k: total(lambda o: o[4][k]) / n for k in outs[0][4]}
+    accum = total(lambda o: torch.where(
+        o[3].radii > 0, torch.linalg.norm(o[6][:, :2], dim=-1), 0.0))
+    radii = outs[0][3].radii
+    for o in outs[1:]:
+        radii = torch.maximum(radii, o[3].radii)
+    st = state.stats
+    stats = densify_lib.DensifyStats(
+        xyz_gradient_accum=st.xyz_gradient_accum + accum,
+        denom=st.denom + total(lambda o: (o[3].radii > 0).float()),
+        max_radii2d=torch.maximum(st.max_radii2d, radii))
+    new = trainer.finish_train_step(
+        state, grads, total(lambda o: o[5]) / n, stats, stepc, None,
+        opt=opt, spatial_lr_scale=1.0)
+    return new, total(lambda o: o[0]) / n, grads, accum, radii > 0
+
+
+def dp_rank_step(spec, rank, dev):
+    """10b's step and 10c on this rank: the scene of phase 8 (Scene from
+    its point cloud, the loop's capacity), this rank's camera; rank 0 also
+    computes the two-camera step in one process."""
+    import random
+
+    from gsplat_tpu_torch.config import ModelConfig
+    from gsplat_tpu_torch.parallel import dp as dp_lib
+    from gsplat_tpu_torch.parallel import mesh as mesh_lib
+    from gsplat_tpu_torch.scene import Scene
+    random.seed(0)
+    scene = Scene(ModelConfig(source_path=spec["src"], model_path="",
+                              sh_degree=3, resolution=1, eval=True), 3,
+                  device=dev)
+    n0 = scene.gaussians.num_active()
+    cap = -(-max(n0 * 4, 1024) // 1024) * 1024          # the loop's
+    state = trainer.init_state(gm.pad_to_capacity(scene.gaussians, cap),
+                               len(scene.getTrainCameras()))
+    bg = torch.zeros(3, device=dev)
+    views = [(*dp_lib.camera_inputs(c, dev), bg)
+             for c in scene.getTrainCameras()[:DP_RANKS]]
+    opt, cfg = OptimizationConfig(), RasterizerConfig()
+    mesh = mesh_lib.make_mesh((("data", -1),))
+    kw = dict(image_width=W, image_height=H, opt=opt, rcfg=cfg,
+              spatial_lr_scale=1.0)
+    step = dp_lib.make_dp_train_step(mesh, **kw)
+    step2d = sharded.make_sharded_dp_train_step(mesh, DP_SHARDS,
+                                                transient="ring", **kw)
+    out = {}
+    with deterministic():
+        reset_launches()
+        s_dp, a_dp = step(state, *views[rank])
+        torch.cuda.synchronize()
+        out["step_launches"] = read_launches()
+        check(int(a_dp.overflow) == 0, "DP step overflow")
+        out["step_digest"] = state_digest(s_dp)
+        out["step_loss"] = float(a_dp.loss)
+        if rank == 0:
+            ref, ref_loss, ref_grads, ref_accum, vis = two_camera_reference(
+                state, views, opt, cfg)
+            check(states_equal(s_dp, ref) and torch.equal(a_dp.loss,
+                                                          ref_loss),
+                  "the DP step differs from the two-camera step")
+            out["reference_digest"] = state_digest(ref)
+            del ref
+    del s_dp
+
+    # 10c: the 2-D step from the same state, DP_SHARDS row shards
+    reset_launches()
+    t = time.perf_counter()
+    s2, a2 = step2d(sharded.shard_state(state, DP_SHARDS), *views[rank])
+    torch.cuda.synchronize()
+    out["step2d_ms"] = (time.perf_counter() - t) * 1e3
+    out["step2d_launches"] = read_launches()
+    check(int(a2.overflow) == 0, "2-D step overflow")
+    out["step2d_digest"] = state_digest(s2)
+    out["step2d_loss"] = float(a2.loss)
+    if rank == 0:
+        loss, want = float(a2.loss), float(ref_loss)
+        check(abs(loss - want) <= 1e-6 * abs(want) + 1e-7,
+              f"2-D step loss {loss} vs the two-camera step's {want}")
+        # the step's gradients from Adam's first moment (mu = 0.1 g from
+        # zero moments), and its accum increment from the statistics
+        # (a fresh scene has SH degree 0 active and isotropic scales: no
+        # gradient of f_rest or rotation, here as there)
+        want = dict(ref_grads, accum=ref_accum)
+        got = {k: s2.adam.mu[k] / 0.1 for k in ref_grads}
+        got["accum"] = s2.stats.xyz_gradient_accum
+        for k in [k for k, v in want.items() if not bool(v.any())]:
+            check(not bool(got.pop(k).any()), f"2-D step: a gradient of "
+                  f"{k} where the two-camera step has none")
+            del want[k]
+        out["step2d_worst"] = hold_grads(
+            "2-D step, ring", "the two-camera step's", got, want, vis)
+    return out
+
+
+def dp_rank_loop(spec, rank, dev):
+    """10b's loop on this rank: ``train(..., data_parallel=True)`` on phase
+    8's scene, recording the batches drawn, the densify events, the
+    host-clock ms of every all-reduce and, on rank 1, every file opened for
+    writing or directory made under the model directory."""
+    import contextlib
+    import random
+    import sys
+
+    import gsplat_tpu_torch.parallel as par
+    from gsplat_tpu_torch.config import ModelConfig, PipelineConfig
+    from gsplat_tpu_torch.train import loop
+    model = spec["model"]
+    writes, picks, densify, reduce_ms = [], [], [], []
+
+    def audit(event, args):
+        if event == "open":
+            path, mode, flags = args
+            writing = ((isinstance(mode, str) and any(c in mode
+                                                      for c in "wax+"))
+                       or (isinstance(flags, int) and flags
+                           & (os.O_WRONLY | os.O_RDWR | os.O_CREAT)))
+            if writing and str(path).startswith(model):
+                writes.append(str(path))
+        elif event in ("os.mkdir", "shutil.copyfile") and \
+                str(args[0]).startswith(model):
+            writes.append(str(args[0]))
+
+    fill, dens, reduce = loop.fill_batch, trainer.densify_step, \
+        par._all_reduce
+
+    def fill_rec(*a, **kw):
+        b = fill(*a, **kw)
+        picks.append([c.image_name for c in b])
+        return b
+
+    def dens_rec(state, *a, **kw):
+        densify.append(state.step)
+        return dens(state, *a, **kw)
+
+    def reduce_rec(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = reduce(*a, **kw)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t) * 1e3)
+        return r
+
+    if rank > 0:
+        sys.addaudithook(audit)
+    loop.fill_batch, trainer.densify_step, par._all_reduce = \
+        fill_rec, dens_rec, reduce_rec
+    tee = Tee(sys.stdout)
+    try:
+        reset_launches()
+        random.seed(0)
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            _, state = loop.train(
+                ModelConfig(source_path=spec["src"], model_path=model,
+                            sh_degree=3, resolution=1, eval=True),
+                OptimizationConfig(**DP_LOOP_OPT), PipelineConfig(),
+                RasterizerConfig(), [], [DP_LOOP_ITERS], [], quiet=True,
+                data_parallel=True, device=dev)
+            torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t
+    finally:
+        loop.fill_batch, trainer.densify_step, par._all_reduce = \
+            fill, dens, reduce
+    retries = tee.count("retrying frame")
+    steps = DP_LOOP_ITERS + retries
+    launches = read_launches()
+    want = expected_loop_launches(steps, 0)
+    check(launches == want, f"rank {rank}: the DP loop launched {launches}, "
+          f"expected {want}")
+    check(densify == [15], f"rank {rank}: densify events {densify}")
+    check(state.step == DP_LOOP_ITERS, f"rank {rank}: step {state.step}")
+    return dict(loop_digest=state_digest(state), picks=picks,
+                writes=writes, loop_launches=launches, loop_s=loop_s,
+                retries=retries, reduce_ms=reduce_ms,
+                live=state.gaussians.num_active(),
+                capacity=state.gaussians.capacity)
+
+
+def dp_rank_main(spec_path):
+    """One rank of 10b / 10c: joins the gloo group on the shared card, runs
+    the step, the 2-D step and the loop, prints one ``DPRESULT`` JSON
+    line."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from gsplat_tpu_torch.parallel import mesh as mesh_lib
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev = torch.device(spec["device"])
+    check(mesh_lib.init_distributed(
+        device=dev, backend="gloo",
+        timeout=timedelta(seconds=DP_GROUP_TIMEOUT)), "did not join")
+    rank, n = mesh_lib.world()
+    check(n == DP_RANKS and dist.get_backend() == "gloo", "the group")
+    try:
+        out = dp_rank_step(spec, rank, dev)
+        torch.cuda.empty_cache()
+        out.update(dp_rank_loop(spec, rank, dev))
+    finally:
+        dist.destroy_process_group()
+    print("DPRESULT " + json.dumps(dict(out, rank=rank)), flush=True)
+
+
+def dp_gloo_phase(src, root):
+    """10b and 10c: DP_RANKS processes of this script sharing the card over
+    gloo, each within DP_TIMEOUT; every rank's exit code, their agreement
+    and rank 0's gates. Returns rank 0's launch counts of the loop and of
+    the 2-D step."""
+    import sys
+    model = os.path.join(root, "loop_dp")
+    spec_path = os.path.join(root, "dp_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(dict(src=src, model=model, device="cuda:0"), f)
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()), WORLD_SIZE=str(DP_RANKS),
+               LOCAL_WORLD_SIZE=str(DP_RANKS))
+    t = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-rank", spec_path],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(DP_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            left = DP_TIMEOUT - (time.perf_counter() - t)
+            try:
+                outs.append(p.communicate(timeout=max(left, 1.0))[0])
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"a rank of 10b/10c passed {DP_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall_s = time.perf_counter() - t
+    results = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            if not line.startswith("DPRESULT"):
+                print(f"[rank {r}] {line}", flush=True)
+        check(p.returncode == 0, f"rank {r} of 10b/10c exited with "
+              f"{p.returncode}")
+        got = [ln for ln in out.splitlines() if ln.startswith("DPRESULT ")]
+        check(len(got) == 1, f"rank {r}: no result")
+        results.append(json.loads(got[0][len("DPRESULT "):]))
+    r0, r1 = results
+    for key in ("step_digest", "step_loss", "step2d_digest", "step2d_loss",
+                "loop_digest", "picks", "live", "capacity"):
+        check(r0[key] == r1[key], f"the ranks differ in {key}: {r0[key]} / "
+              f"{r1[key]}")
+    check(r0["step_digest"] == r0["reference_digest"],
+          "the DP step differs from the two-camera step")
+    check(r1["writes"] == [], f"rank 1 wrote {r1['writes']}")
+    for name in ("cameras.json", "input.ply", "training_log.jsonl",
+                 f"point_cloud/iteration_{DP_LOOP_ITERS}/point_cloud.ply"):
+        check(os.path.exists(os.path.join(model, name)), f"no {name}")
+    for r in results:
+        check_launches(r["step_launches"], "per_step", 1,
+                       f"rank {r['rank']}'s DP step")
+        want = expected_loop_launches(1, 0, sharded_shards=DP_SHARDS)
+        check(r["step2d_launches"] == want, f"rank {r['rank']}'s 2-D step "
+              f"launched {r['step2d_launches']}, expected {want}")
+    log = [x for x in loop_log(model) if "train_loss_patches/total_loss" in x]
+    check([x["step"] for x in log] == list(range(1, DP_LOOP_ITERS + 1))
+          and all(np.isfinite(x["train_loss_patches/total_loss"])
+                  for x in log), "the DP loop's log")
+    iter_ms = [x["iter_time"] * 1e3 for x in log]
+    sum_mb = r0["capacity"] * DP_SUM_FLOATS * 4 / 1e6
+    reduce_ms = r0["reduce_ms"]
+    per_iter = np.sum(reduce_ms) / (DP_LOOP_ITERS + r0["retries"])
+    print(f"dp gloo, {DP_RANKS} ranks sharing the card, {W}x{H}, phase 8's "
+          f"scene: one DP step equal to the two-camera step bit for bit, "
+          f"the ranks' states equal; 2-D step ({DP_SHARDS} shards, ring) "
+          f"{r0['step2d_ms']:.1f} ms, worst gradient error "
+          f"{r0['step2d_worst']:.3e} of a field's largest; loop "
+          f"{DP_LOOP_ITERS} iterations in {r0['loop_s']:.2f} s, iteration "
+          f"ms median {np.median(iter_ms):.3f} (rank 0, iter_time; min "
+          f"{min(iter_ms):.3f}, max {max(iter_ms):.3f}), all-reduces "
+          f"{len(reduce_ms)} taking {per_iter:.3f} ms per iteration "
+          f"({per_iter / np.median(iter_ms):.1%} of the median; "
+          f"{sum_mb:.1f} MB summed per step, staged through the host by "
+          f"gloo), retries {r0['retries']}, final capacity "
+          f"{r0['capacity']}, live {r0['live']}, batches equal on both "
+          f"ranks ({len(r0['picks'])}), rank 1 wrote nothing; launches "
+          f"{r0['loop_launches']}; 2-D step {r0['step2d_launches']}; both "
+          f"ranks in {wall_s:.1f} s", flush=True)
+    return r0["loop_launches"], r0["step2d_launches"]
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing run")
@@ -2428,7 +2929,7 @@ def main():
     profile_call("one frame", one_frame)
 
     # ---- phase 5: the training path at full width
-    state, train_launches = train_phase(tg, tcam, tgt, tcfg)
+    state, train_launches, train_ms = train_phase(tg, tcam, tgt, tcfg)
     profile_call("one train step",
                  lambda: train(state, tcam, tgt, tcfg, OptimizationConfig()),
                  n_top=15)
@@ -2450,6 +2951,13 @@ def main():
     eval_launches, view_launches, bridge_launches = view_phase(
         dev, os.path.join(REPO, "build", "chip_smoke"), **run_a)
 
+    # ---- phase 10: camera data parallelism on the one card
+    torch.cuda.empty_cache()
+    dp_nccl_launches = dp_nccl_phase(tg, tcam, tgt, tcfg, train_ms)
+    torch.cuda.empty_cache()
+    dp_gloo_launches, dp_2d_launches = dp_gloo_phase(
+        run_a["src"], os.path.join(REPO, "build", "chip_smoke"))
+
     kernels = []
     for name, k in KERNELS.items():
         by_path = {"render": render_launches[name],
@@ -2459,7 +2967,10 @@ def main():
                    "loop": loop_counts[name],
                    "loop_sharded": loop_sharded_launches[name],
                    "eval": eval_launches[name], "view": view_launches[name],
-                   "loop_bridge": bridge_launches[name]}
+                   "loop_bridge": bridge_launches[name],
+                   "dp_nccl": dp_nccl_launches[name],
+                   "dp_gloo_loop": dp_gloo_launches[name],
+                   "dp_2d": dp_2d_launches[name]}
         check(any(by_path.values()), f"{name} was launched on no path")
         n = numbers[name]
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"):
@@ -2479,4 +2990,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+    if sys.argv[1:2] == ["--dp-rank"]:
+        dp_rank_main(sys.argv[2])
+    else:
+        main()

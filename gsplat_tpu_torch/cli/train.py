@@ -1,7 +1,17 @@
 """Training CLI: ``python train_torch.py -s <scene> -m <model>``. The flag
 surface of gsplat_tpu/cli/train.py, plus ``--device`` (default ``cuda``)
 and ``--shards N`` (the number of row shards ``--shard_gaussians`` keeps on
-one device, where the JAX package takes the mesh size)."""
+one device, where the JAX package takes the mesh size).
+
+Camera data parallelism runs one process per card:
+
+    torchrun --nproc_per_node=N train_torch.py -s <scene> -m <model> \
+        --data_parallel [--shard_gaussians --shards K]
+
+Each rank joins the process group first (``parallel/mesh.py``), trains on
+``cuda:LOCAL_RANK``; rank 0 alone writes the model directory and binds the
+viewer bridge, and the other ranks wait for it while its client keeps
+training paused (``train/loop.py``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,6 +25,7 @@ def main(argv=None):
     import torch
 
     from gsplat_tpu_torch import config as cfg_lib
+    from gsplat_tpu_torch.parallel.mesh import init_distributed, world
     from gsplat_tpu_torch.utils.general import (mkdir_p, resolve_device,
                                                 safe_state)
 
@@ -36,8 +47,9 @@ def main(argv=None):
     parser.add_argument("--quiet", action="store_true")
     parser.add_argument("--disable_viewer", action="store_true", default=False)
     parser.add_argument("--data_parallel", action="store_true", default=False,
-                        help="camera data-parallel training: changes nothing "
-                             "on one device; not ported for several")
+                        help="camera data-parallel training over the ranks "
+                             "of torchrun (one camera per card per step); "
+                             "changes nothing in a world of one")
     parser.add_argument("--shard_gaussians", action="store_true",
                         default=False,
                         help="gaussian-sharded storage training: params, "
@@ -60,7 +72,13 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv if argv is not None else sys.argv[1:])
     args.save_iterations.append(args.iterations)
+    # multi-process bring-up before anything else (a no-op without
+    # torchrun's environment); under a process group "cuda" is this rank's
+    # card
+    joined = (not torch.distributed.is_initialized()
+              and init_distributed(device=args.device))
     device = resolve_device(args.device)
+    rank, n_ranks = world()
 
     dataset = cfg_lib.extract(cfg_lib.ModelConfig, args)
     opt = cfg_lib.extract(cfg_lib.OptimizationConfig, args)
@@ -68,21 +86,23 @@ def main(argv=None):
     rcfg = cfg_lib.extract(cfg_lib.RasterizerConfig, args)
 
     if not dataset.model_path:
-        unique_str = os.getenv("OAR_JOB_ID") or str(uuid.uuid4())
+        unique = [os.getenv("OAR_JOB_ID") or str(uuid.uuid4())]
+        if n_ranks > 1:          # one directory for every rank: rank 0's
+            torch.distributed.broadcast_object_list(unique, src=0)
         dataset = dataclasses.replace(
-            dataset, model_path=os.path.join("./output/", unique_str[0:10]))
+            dataset, model_path=os.path.join("./output/", unique[0][0:10]))
     print("Optimizing " + dataset.model_path)
-    mkdir_p(dataset.model_path)
-    cfg_lib.save_cfg(dataset.model_path, {
-        "model": dataset, "pipeline": pipe, "optimization": opt,
-        "rasterizer": rcfg})
+    if rank == 0:
+        mkdir_p(dataset.model_path)
+        cfg_lib.save_cfg(dataset.model_path, {
+            "model": dataset, "pipeline": pipe, "optimization": opt,
+            "rasterizer": rcfg})
 
     safe_state(args.quiet)
-    # multi-host bring-up (JAX: init_distributed) is not ported; one process
     if args.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)
     server = None
-    if not args.disable_viewer:
+    if not args.disable_viewer and rank == 0:
         from gsplat_tpu_torch.viewer.network_gui import NetworkGUI
         try:
             server = NetworkGUI(args.ip, args.port, device=device)
@@ -102,6 +122,8 @@ def main(argv=None):
     finally:
         if server is not None:
             server.close()
+        if joined:
+            torch.distributed.destroy_process_group()
     print("\nTraining complete.")
 
 

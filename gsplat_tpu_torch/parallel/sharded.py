@@ -36,12 +36,15 @@ each with the arithmetic of one chip of the JAX mesh. Where the mesh runs a
 collective stands a helper of ``gsplat_tpu_torch.parallel``:
 ``gather_parts`` (all-gather), ``ring_arrival`` (the slab a shard holds at
 ring step s) and ``reduce_scatter_parts`` (the partial gradients sent to
-their owners, which autograd sums over the shards). Not ported: the camera
-data-parallel form of the step and the ``row_cull`` branches (the port's
-config has no ``row_cull``).
+their owners, which autograd sums over the shards). The camera
+data-parallel form (``make_sharded_dp_train_step``) runs the data axis over
+the ranks of a process group, each rank holding the D shards of the whole
+state. Not ported: the ``row_cull`` branches (the port's config has no
+``row_cull``).
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, List, NamedTuple, Optional
 
 import torch
@@ -58,8 +61,8 @@ from gsplat_tpu_torch.ops.rasterize import (_prefix_between, _tiles_to_image,
                                             masked_presort_prefix,
                                             masked_presort_prefix_slabs,
                                             pack_rows)
-from gsplat_tpu_torch.parallel import (gather_parts, reduce_scatter_parts,
-                                       ring_arrival)
+from gsplat_tpu_torch.parallel import (dp, gather_parts,
+                                       reduce_scatter_parts, ring_arrival)
 from gsplat_tpu_torch.train import densify as densify_lib
 from gsplat_tpu_torch.train import trainer
 from gsplat_tpu_torch.utils.general import full_f32_matmul
@@ -392,6 +395,8 @@ def sharded_loss_grads(g: gm.GaussianParams, exposure_all: torch.Tensor,
     full_f32_matmul()      # the exposure product is held to JAX's HIGHEST
     W, H = image_width, image_height
     cap = g.capacity
+    if cap % n_shards:
+        raise ValueError(f"capacity {cap} not divisible by {n_shards} shards")
     depth_w = expon_lr(step, opt.depth_l1_weight_init,
                        opt.depth_l1_weight_final, max_steps=opt.iterations)
     fields = gm.TRAINABLE_FIELDS
@@ -477,3 +482,21 @@ def make_sharded_train_step(n_shards: int, *, image_width: int,
         return new_state, aux
 
     return step
+
+
+def make_sharded_dp_train_step(mesh, n_shards: int, *,
+                               data_axis: str = "data",
+                               transient: str = "replicated", **kw):
+    """The 2-D step: camera data parallelism over the ranks of
+    ``data_axis`` composed with gaussian-sharded storage in ``n_shards``
+    row shards on each rank. It is ``parallel/dp.py``'s step with each
+    rank's view through the sharded render (``sharded_loss_grads``): the
+    shards' gradients, the loss values and the densification increments
+    are reduced over the data axis as a view's are there. JAX
+    differentiates a batch-mean loss and so sums the data axis's cotangents
+    in ``_psum_grad`` and scales each view's tap gradient back by the
+    batch; each rank here differentiates its own view's loss, which gives
+    the same values. Keywords of ``make_sharded_train_step``, with the
+    rank's camera and images."""
+    return dp.make_dp_train_step(mesh, axis=data_axis, loss_grads=partial(
+        sharded_loss_grads, n_shards=n_shards, transient=transient), **kw)

@@ -19,22 +19,37 @@ of live gaussians on the host every iteration, as JAX's does.
 Branches: with ``shard_gaussians`` and ``n_shards > 1`` the state is held in
 ``n_shards`` row shards and each step runs
 ``parallel/sharded.py:make_sharded_train_step`` (JAX takes the mesh size as
-the shard count; one card holds the shards one after another). The camera
-data-parallel forms are not ported: ``data_parallel`` changes nothing with
-one visible device, as in JAX, and raises with more. A
-``network_gui_server`` (viewer/network_gui.py) is polled at the top of
-every iteration, as in JAX; an error of its render raises out of ``train``.
+the shard count; one card holds the shards one after another). With
+``data_parallel`` under a process group of more than one rank (one per
+card, ``parallel/mesh.py``) every step trains a batch of one camera per
+rank: ``parallel/dp.py:make_dp_train_step``, or with the row shards too
+``parallel/sharded.py:make_sharded_dp_train_step`` (data = the ranks, prim
+= ``n_shards`` on each). Every rank draws the same batch (Python's
+``random``, JAX's batch filling line for line) and takes its own row; the
+retry, shrink and growth decisions read the all-reduced maxima, so every
+rank takes the same branch and the states stay equal bit for bit. Rank 0
+alone writes files (``Scene``'s ``input.ply`` and ``cameras.json``, saves,
+checkpoints, telemetry, the debug snapshot with the whole batch) and
+evaluates, while the other ranks wait for it in a ``parallel/mesh.py:Hold``
+(no deadline of the steps' group runs meanwhile). A world of one changes
+nothing, as JAX on one device; one process that sees several cards raises
+(JAX takes every local device in one process; the port takes one process
+per card, from ``torchrun``). A ``network_gui_server``
+(viewer/network_gui.py) is polled at the top of every iteration, as in JAX;
+an error of its render raises out of ``train``. Under a process group rank
+0 alone serves it, and the other ranks wait in the Hold while its client
+keeps training paused or keeps the last iteration alive.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 import random
 import time
 from typing import Optional
 
-import numpy as np
 import torch
 
 from gsplat_tpu_torch.config import (ModelConfig, OptimizationConfig,
@@ -42,6 +57,8 @@ from gsplat_tpu_torch.config import (ModelConfig, OptimizationConfig,
 from gsplat_tpu_torch.models import gaussian_model as gm
 from gsplat_tpu_torch.ops import losses
 from gsplat_tpu_torch.ops.rasterize import render
+from gsplat_tpu_torch.parallel import dp as dp_lib
+from gsplat_tpu_torch.parallel import mesh as mesh_lib
 from gsplat_tpu_torch.parallel import sharded as sharded_lib
 from gsplat_tpu_torch.scene import Scene
 from gsplat_tpu_torch.train import checkpoint as ckpt_lib
@@ -54,16 +71,28 @@ def _round_up(x, m):
     return -(-x // m) * m
 
 
-def _cam_arrays(cam):
-    """(gt, alpha_mask, invdepth_gt, depth_mask) host arrays of a camera;
-    zero depth maps where it has no reliable one."""
-    H, W = cam.height, cam.width
-    if cam.invdepthmap is not None and cam.depth_reliable:
-        inv_gt, dmask = cam.invdepthmap, cam.depth_mask
-    else:
-        inv_gt = np.zeros((1, H, W), np.float32)
-        dmask = np.zeros((1, H, W), np.float32)
-    return cam.image, cam.alpha_mask, inv_gt, dmask
+def fill_batch(cam, viewpoint_stack, train_cams, data_batch):
+    """``cam`` and ``data_batch - 1`` more cameras of its resolution, taken
+    from ``viewpoint_stack`` (by position: a camera holds numpy arrays, so
+    == is not usable) with Python's ``random``, the stack refilled from
+    ``train_cams`` when it runs dry mid-batch and drawn on WITHOUT
+    replacement: JAX's batch filling (gsplat_tpu/train/loop.py), the same
+    draws in the same order."""
+    W, H = cam.width, cam.height
+    batch = [cam]
+    rest_idx = [i for i, c in enumerate(viewpoint_stack)
+                if (c.width, c.height) == (W, H)]
+    random.shuffle(rest_idx)
+    for i in sorted(rest_idx[:data_batch - 1], reverse=True):
+        batch.append(viewpoint_stack.pop(i))
+    while len(batch) < data_batch:
+        viewpoint_stack.extend(train_cams)
+        idxs = [i for i, c in enumerate(viewpoint_stack)
+                if (c.width, c.height) == (W, H)]
+        random.shuffle(idxs)
+        for i in sorted(idxs[:data_batch - len(batch)], reverse=True):
+            batch.append(viewpoint_stack.pop(i))
+    return batch
 
 
 def train(dataset: ModelConfig, opt: OptimizationConfig, pipe: PipelineConfig,
@@ -76,14 +105,34 @@ def train(dataset: ModelConfig, opt: OptimizationConfig, pipe: PipelineConfig,
           n_shards: int = 1):
     """Run the full optimization on ``device``. Returns (scene, state)."""
     dev = resolve_device(device)
-    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
-    if data_parallel and n_dev > 1:
-        raise NotImplementedError(
-            "camera data-parallel training over several cards is not ported")
+    rank, n_ranks = mesh_lib.world()
     if n_shards > 1 and not shard_gaussians:
         raise ValueError("n_shards > 1 needs shard_gaussians")
+    if n_ranks > 1 and not data_parallel:
+        raise ValueError(f"a process group of {n_ranks} ranks trains with "
+                         "data_parallel (one camera per rank and step)")
+    if (data_parallel and n_ranks == 1 and dev.type == "cuda"
+            and torch.cuda.device_count() > 1):
+        raise ValueError(
+            f"data_parallel in one process that sees "
+            f"{torch.cuda.device_count()} cards: start one process per card "
+            "with torchrun --nproc_per_node=N")
+    if network_gui_server is not None and rank != 0:
+        raise ValueError("the viewer bridge is served by rank 0 alone")
+    writer = rank == 0
+    # where rank 0 works alone (its writes below, the bridge's frames) the
+    # other ranks wait for it here, not in a collective of the next step
+    hold = mesh_lib.Hold() if n_ranks > 1 else None
 
-    scene = Scene(dataset, dataset.sh_degree, capacity=0, device=dev)
+    # every rank reads the scene; rank 0 alone writes its input.ply and
+    # cameras.json (a Scene without a model path writes nothing)
+    scene = Scene(dataset if writer
+                  else dataclasses.replace(dataset, model_path=""),
+                  dataset.sh_degree, capacity=0, device=dev)
+    # the ranks wait at the top of every iteration while rank 0 serves a
+    # viewer client, which may keep training paused
+    hold_for_bridge = hold is not None and hold.from_rank0(
+        network_gui_server is not None)
     n0 = scene.gaussians.num_active()
     cap0 = _round_up(max(int(n0 * capacity_multiplier), 1024), 1024)
     scene.gaussians = gm.pad_to_capacity(scene.gaussians, cap0)
@@ -113,6 +162,15 @@ def train(dataset: ModelConfig, opt: OptimizationConfig, pipe: PipelineConfig,
                    use_sparse_adam=use_sparse_adam,
                    train_test_exp=dataset.train_test_exp, use_depth=use_depth)
 
+    # ---- camera data parallelism over the ranks (parallel/dp.py) ----
+    # one camera per rank and step; one step still counts as one iteration
+    # (the schedules follow optimizer steps)
+    data_batch = n_ranks if data_parallel else 1
+    dp_mesh = mesh_lib.make_mesh((("data", n_ranks),)) \
+        if data_batch > 1 else None
+    if dp_mesh is not None:
+        print(f"camera data-parallel training over {n_ranks} ranks")
+
     # ---- gaussian-sharded storage (parallel/sharded.py) ----
     n_prim = n_shards if shard_gaussians else 1
     if n_prim > 1:
@@ -120,7 +178,22 @@ def train(dataset: ModelConfig, opt: OptimizationConfig, pipe: PipelineConfig,
             state, _round_up(state.gaussians.capacity, n_prim))
         state = sharded_lib.shard_state(state, n_prim)
         print(f"gaussian-sharded training over {n_prim} shards "
-              f"({state.gaussians.capacity // n_prim} rows/shard)")
+              f"({state.gaussians.capacity // n_prim} rows/shard)"
+              + (f" x {data_batch} camera-DP" if dp_mesh is not None
+                 else ""))
+
+    # the step's factory, given each frame's size and pair capacity; None:
+    # trainer.train_step
+    make_step = None
+    if dp_mesh is not None:
+        make_step = functools.partial(
+            dp_lib.make_dp_train_step, dp_mesh, loss_grads=None if n_prim == 1
+            else functools.partial(sharded_lib.sharded_loss_grads,
+                                   n_shards=n_prim,
+                                   transient=shard_transient))
+    elif n_prim > 1:
+        make_step = functools.partial(sharded_lib.make_sharded_train_step,
+                                      n_prim, transient=shard_transient)
 
     viewpoint_stack = []
     ema_loss = 0.0
@@ -130,13 +203,13 @@ def train(dataset: ModelConfig, opt: OptimizationConfig, pipe: PipelineConfig,
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     timer = Timer()
-    telemetry = Telemetry(scene.model_path)
+    telemetry = Telemetry(scene.model_path if writer else None)
     t_iter = time.time()
     # periodic checkpoints written on a background thread
     # (--checkpoint_interval), beside the synchronous
     # --checkpoint_iterations snapshots
     ckpt_mngr = None
-    if checkpoint_interval > 0:
+    if checkpoint_interval > 0 and writer:
         ckpt_mngr = ckpt_lib.AsyncCheckpointManager(
             os.path.join(scene.model_path, "checkpoints"))
 
@@ -145,6 +218,8 @@ def train(dataset: ModelConfig, opt: OptimizationConfig, pipe: PipelineConfig,
             network_gui_server.poll(state, scene, pipe, rcfg, bg_color,
                                     iteration, opt.iterations,
                                     dataset.train_test_exp)
+        if hold_for_bridge:
+            hold.wait()
 
         if not viewpoint_stack:
             viewpoint_stack = list(scene.getTrainCameras())
@@ -156,21 +231,20 @@ def train(dataset: ModelConfig, opt: OptimizationConfig, pipe: PipelineConfig,
         else:
             bg = bg_color
 
-        # the frame's images go to the device every iteration
-        view = cam.view(dev)
-        gt, amask, inv_gt, dmask = (torch.tensor(a, dtype=torch.float32,
-                                                 device=dev)
-                                    for a in _cam_arrays(cam))
+        # the frame's images go to the device every iteration: with a
+        # batch, every rank draws the same batch and uploads its own row
+        if data_batch > 1:
+            batch = fill_batch(cam, viewpoint_stack, scene.getTrainCameras(),
+                               data_batch)
+            cam = batch[rank]
+        view, gt, amask, inv_gt, dmask = dp_lib.camera_inputs(cam, dev)
 
         def run_step(s):
-            if n_prim > 1:
-                step = sharded_lib.make_sharded_train_step(
-                    n_prim, image_width=W, image_height=H, rcfg=rcfg,
-                    transient=shard_transient, **step_kw)
-                return step(s, view, gt, amask, inv_gt, dmask, bg)
-            return trainer.train_step(s, view, gt, amask, inv_gt, dmask, bg,
-                                      image_width=W, image_height=H,
-                                      rcfg=rcfg, **step_kw)
+            kw = dict(image_width=W, image_height=H, rcfg=rcfg, **step_kw)
+            if make_step is None:
+                return trainer.train_step(s, view, gt, amask, inv_gt, dmask,
+                                          bg, **kw)
+            return make_step(**kw)(s, view, gt, amask, inv_gt, dmask, bg)
 
         prev_state = state        # the step returns a new state
         state, aux = run_step(state)
@@ -208,10 +282,16 @@ def train(dataset: ModelConfig, opt: OptimizationConfig, pipe: PipelineConfig,
         loss_now = float(aux.loss)
         if pipe.debug and not math.isfinite(loss_now):
             from gsplat_tpu_torch.utils.debug import dump_snapshot
-            path = os.path.join(scene.model_path or ".",
+            path = os.path.join(dataset.model_path or ".",
                                 f"snapshot_iter{iteration}.npz")
-            dump_snapshot(path, prev_state, view, (gt, amask, inv_gt, dmask),
-                          iteration, reason=f"non-finite loss {loss_now}")
+            # exactly what the failing step consumed: with a batch, every
+            # rank's camera and images (every rank drew the whole batch)
+            if writer:
+                inputs = (dp_lib.stack_camera_batch(batch, dev)
+                          if data_batch > 1
+                          else (view, (gt, amask, inv_gt, dmask)))
+                dump_snapshot(path, prev_state, *inputs, iteration,
+                              reason=f"non-finite loss {loss_now}")
             raise FloatingPointError(
                 f"[iter {iteration}] non-finite loss {loss_now}; step inputs "
                 f"dumped to {path}")
@@ -279,21 +359,26 @@ def train(dataset: ModelConfig, opt: OptimizationConfig, pipe: PipelineConfig,
                   f"depth={ema_depth:.5f} n={n_act} "
                   f"({timer.elapsed():.0f}s)", flush=True)
 
-        if iteration in testing_iterations:
+        evaluating = iteration in testing_iterations
+        saving = iteration in saving_iterations
+        checkpointing = iteration in checkpoint_iterations
+        if writer and evaluating:
             report_eval(scene, state, rcfg, pipe, bg_color, iteration,
                         dataset.train_test_exp, telemetry=telemetry)
-        if iteration in saving_iterations:
+        if writer and saving:
             print(f"\n[ITER {iteration}] Saving Gaussians")
             scene.gaussians = state.gaussians
             scene.save(iteration, exposures=state.exposure.cpu().numpy()
                        if dataset.train_test_exp else None)
-        if iteration in checkpoint_iterations:
+        if writer and checkpointing:
             print(f"\n[ITER {iteration}] Saving Checkpoint")
             ckpt_lib.save_checkpoint(
                 os.path.join(scene.model_path, f"chkpnt{iteration}.npz"),
                 state, iteration)
         if ckpt_mngr is not None and iteration % checkpoint_interval == 0:
             ckpt_mngr.save(iteration, state)
+        if hold is not None and (evaluating or saving or checkpointing):
+            hold.wait()
 
     scene.gaussians = state.gaussians
     telemetry.close()

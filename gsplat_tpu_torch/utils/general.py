@@ -10,6 +10,7 @@ from datetime import datetime
 
 import numpy as np
 import torch
+import torch.distributed
 
 
 class Timer:
@@ -26,13 +27,35 @@ def mkdir_p(folder_path):
 
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device``. Raises when CUDA is asked for and
-    absent: the port never carries on quietly on the CPU."""
+    absent: the port never carries on quietly on the CPU. Under a process
+    group a ``cuda`` without an index is this rank's card
+    (:func:`local_card`)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(device)!r} requested but CUDA is not available; "
             "pass device='cpu' to run on the CPU")
+    if (dev.type == "cuda" and dev.index is None
+            and torch.distributed.is_available()
+            and torch.distributed.is_initialized()):
+        dev = local_card()
     return dev
+
+
+def local_card() -> torch.device:
+    """``cuda:LOCAL_RANK``, the card of this rank (one rank per card, as
+    ``torchrun`` numbers them on each host). Raises when ``LOCAL_RANK`` is
+    unset or not below the number of visible cards: two ranks never share
+    a card by accident."""
+    if "LOCAL_RANK" not in os.environ:
+        raise RuntimeError("LOCAL_RANK is not set: start the ranks with "
+                           "torchrun, or name the card (cuda:N)")
+    local_rank = int(os.environ["LOCAL_RANK"])
+    n_cards = torch.cuda.device_count()
+    if not 0 <= local_rank < n_cards:
+        raise RuntimeError(f"LOCAL_RANK {local_rank} has no card: "
+                           f"{n_cards} visible")
+    return torch.device("cuda", local_rank)
 
 
 def full_f32_matmul() -> None:

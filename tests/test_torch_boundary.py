@@ -1,7 +1,7 @@
 """The port's import boundary and device contract.
 
 gsplat_tpu_torch, chip_smoke.py, the A/B scripts (compositor_ab.py,
-ssim_ab.py) and the port's root CLIs (``*_torch.py``) import neither JAX
+ssim_ab.py), rank0_writes.py and the port's root CLIs (``*_torch.py``) import neither JAX
 nor anything of the gsplat_tpu package, and
 the port's entry points run on CUDA unless the caller asks for the CPU:
 without CUDA they raise instead of carrying on.
@@ -24,7 +24,7 @@ names = [m.name for m in pkgutil.walk_packages(gsplat_tpu_torch.__path__,
                                                "gsplat_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
-import chip_smoke, compositor_ab, ssim_ab
+import chip_smoke, compositor_ab, ssim_ab, rank0_writes
 import metrics_torch, full_eval_torch, convert_torch, view_torch
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "gsplat_tpu"
@@ -52,6 +52,8 @@ def test_port_imports_no_jax_and_no_gsplat_tpu():
                 "gsplat_tpu_torch.parallel.prim_shard",
                 "gsplat_tpu_torch.parallel.tile_shard",
                 "gsplat_tpu_torch.parallel.sharded",
+                "gsplat_tpu_torch.parallel.mesh",
+                "gsplat_tpu_torch.parallel.dp",
                 "gsplat_tpu_torch.cli.render", "gsplat_tpu_torch.scene",
                 "gsplat_tpu_torch.cli.train", "gsplat_tpu_torch.train.loop",
                 "gsplat_tpu_torch.train.checkpoint",

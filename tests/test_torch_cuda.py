@@ -639,3 +639,53 @@ def test_train_step_on_card_matches_cpu(cuda_device):
         p_cpu = getattr(cpu.gaussians, k)
         err = (getattr(gpu.gaussians, k).cpu() - p_cpu).abs()
         assert bool((err <= 1e-6 * p_cpu.abs() + 1e-7 + flip).all()), k
+
+
+def test_dp_step_over_nccl_world_of_one_is_train_step(cuda_device,
+                                                      monkeypatch):
+    """A world of one NCCL rank, joined from an environment set here: the
+    DP step (its two all-reduces on the card) gives ``train_step``'s state
+    and aux bit for bit from the same state, both under torch's
+    deterministic algorithms (the entry gather's gradient without
+    atomics)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from gsplat_tpu_torch.parallel import dp, mesh
+    from gsplat_tpu_torch.train.checkpoint import state_items
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                     WORLD_SIZE="1", RANK="0", LOCAL_RANK="0").items():
+        monkeypatch.setenv(k, v)
+    W, H = 96, 64
+    kw = dict(image_width=W, image_height=H, opt=OptimizationConfig(),
+              rcfg=_cfg(32, 32, 64), spatial_lr_scale=1.0)
+    g, cam = _scene(cuda_device)
+    gt = torch.tensor(np.random.default_rng(3).uniform(
+        0.2, 0.8, (3, H, W)).astype(np.float32), device=cuda_device)
+    ones = torch.ones((1, H, W), device=cuda_device)
+    zeros = torch.zeros((1, H, W), device=cuda_device)
+    inputs = (cam, gt, ones, zeros, zeros, torch.zeros(3, device=cuda_device))
+    assert mesh.init_distributed()
+    try:
+        assert dist.get_backend() == "nccl"
+        step = dp.make_dp_train_step(mesh.make_mesh(), **kw)
+        state = trainer.init_state(g, 1)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            got = step(state, *inputs)
+            want = trainer.train_step(
+                state, *inputs, antialiasing=False, use_sparse_adam=False,
+                train_test_exp=False, use_depth=False, **kw)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    finally:
+        dist.destroy_process_group()
+    for (n1, a), (n2, b) in zip(state_items(got[0]), state_items(want[0])):
+        assert n1 == n2
+        np.testing.assert_array_equal(a, b, err_msg=n1)
+    for a, b in zip(got[1], want[1]):
+        assert torch.equal(a, b)

@@ -21,6 +21,10 @@ ITERS = 12
 @pytest.fixture(autouse=True)
 def _keep_stdout(monkeypatch):
     monkeypatch.setattr(sys, "stdout", sys.stdout)   # the CLIs swap stdout
+    # the loop's telemetry mirrors its scalars to TensorBoard when it
+    # imports, which loads TensorFlow here (about 17 s a process); the
+    # files this test reads do not need it
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
 
 
 def test_full_eval_on_a_tiny_scene(tmp_path, rng, monkeypatch):

@@ -25,6 +25,7 @@ runs out of slots grows the capacity.
 import json
 import random
 import re
+import sys
 
 import numpy as np
 import pytest
@@ -48,6 +49,14 @@ OPT_KW = dict(iterations=ITERS, densify_from_iter=2, densification_interval=6,
 GRAD_TOL = dict(rtol=5e-3, atol=1e-6)    # test_torch_train.py's gate
 TRAINABLE = ("xyz", "f_dc", "f_rest", "scaling", "rotation", "opacity")
 EVENT = re.compile(r"^\[iter \d+\] .*$", re.M)
+
+
+@pytest.fixture(autouse=True)
+def _no_tensorboard(monkeypatch):
+    """Both packages' telemetry mirror their scalars to TensorBoard when it
+    imports, which loads TensorFlow here (about 17 s a process); the JSONL
+    logs these tests read do not need it."""
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
 
 
 def _log(path):

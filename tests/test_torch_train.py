@@ -269,12 +269,20 @@ def _port_step(state, cam, imgs, ct, common):
                                **common)
 
 
-def test_train_step_matches_jax_from_carried_state(rng):
+@functools.lru_cache(maxsize=None)
+def _first_step():
+    """The inputs of ``_step_setup`` from seed 0 and JAX's first step from
+    the initial state, shared by the tests that start from them."""
+    setup = _step_setup(np.random.default_rng(0))
+    g, cam, cj, _, imgs, common = setup
+    s0 = jtrainer.init_state(g, 1)
+    return setup, s0, _jax_step(s0, cam, imgs, cj, common)
+
+
+def test_train_step_matches_jax_from_carried_state():
     """Both packages take the first step from the same state: loss, Adam
     moments, parameters, densification stats."""
-    g, cam, cj, ct, imgs, common = _step_setup(rng)
-    s0 = jtrainer.init_state(g, 1)
-    s1, aux = _jax_step(s0, cam, imgs, cj, common)
+    (g, cam, cj, ct, imgs, common), s0, (s1, aux) = _first_step()
     t0 = ttrainer.state_from_numpy(state_to_numpy(s0), device="cpu")
     _, tcam = port_scene(g, cam)
     t1, taux = _port_step(t0, tcam, imgs, ct, common)
@@ -304,12 +312,11 @@ def test_train_step_matches_jax_from_carried_state(rng):
     np.testing.assert_allclose(t2n(t1.exposure), np.asarray(s1.exposure))
 
 
-def test_loss_grads_and_update_match_jax_on_carried_state(rng):
+def test_loss_grads_and_update_match_jax_on_carried_state():
     """From a JAX state one step in (moments, stats and step carried
     across): camera_loss_grads within the gradient gate, and
     finish_train_step on JAX's own gradients within rtol 1e-6."""
-    g, cam, cj, ct, imgs, common = _step_setup(rng)
-    s1, _ = _jax_step(jtrainer.init_state(g, 1), cam, imgs, cj, common)
+    (g, cam, cj, ct, imgs, common), _, (s1, _) = _first_step()
     t1 = ttrainer.state_from_numpy(state_to_numpy(s1), device="cpu")
     _, tcam = port_scene(g, cam)
     jopt, topt = JaxOptimizationConfig(**OPT_KW), OptimizationConfig(**OPT_KW)

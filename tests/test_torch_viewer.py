@@ -15,6 +15,7 @@
 import io
 import json
 import socket
+import sys
 import threading
 import time
 import urllib.request
@@ -42,6 +43,14 @@ from torch_parity import (CAM_FIELDS, configs, make_colmap_scene, make_scene,
 W, H = 64, 32
 FOVX, FOVY = 0.9, 0.7
 TIMEOUT = 240
+
+
+@pytest.fixture(autouse=True)
+def _no_tensorboard(monkeypatch):
+    """The loop's telemetry mirrors its scalars to TensorBoard when it
+    imports, which loads TensorFlow here (about 17 s a process); the loop
+    under the bridge does not need it."""
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
 
 
 def _payload(R, T, w=W, h=H, **over):
