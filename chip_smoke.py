@@ -87,11 +87,27 @@ Phases, each printing its own line:
    two-camera step in one process, the ranks' states equal, then
    ``train(..., data_parallel=True)`` on phase 8's scene for 20 iterations
    with a densify event, the ranks' final states and batches equal, only
-   rank 0's files there, the all-reduces' share of an iteration; (c) the
-   2-D step (2 ranks x 2 local row shards, ring) against the two-camera
-   step at phase 7's gates; exact launches on each.
+   rank 0's files there, the all-reduces' share of an iteration; exact
+   launches on each;
+11. one rank per part (``RankParts``), the ranks processes of this script
+   sharing the card over gloo: (a) gaussian-sharded storage over 2 ranks
+   on phase 5's scene, each holding 100,000 rows: per transient 5 renders
+   bit for bit this process's 2-shard local form, 1 + 3 steps and one
+   gradient call held to the single render's rows, the collectives' host
+   ms, one profiled step, peak memory per rank beside the one-process
+   form's; (b) the slab and band renders over 2 ranks at phase 6's gates,
+   bit for bit the local forms; (c) JAX's 2-D layout, 4 ranks as data 2 x
+   prim 2, one ring step from 10b's state against the two-camera step at
+   phase 7's gates; (d) ``train(..., shard_gaussians=True)`` on 2 ranks on
+   phase 8's scene, 10 iterations with a densify event that outgrows the
+   capacity, the rows gathered bit for bit this process's ``n_shards=2``
+   loop (both under torch's deterministic algorithms), rank 0's
+   checkpoint its file, rank 1 writing nothing; exact launches per rank.
 Then a ``kernels`` JSON line with one object per kernel of the KERNELS
 table, the nvidia-smi line, and a final JSON line.
+
+``python3 chip_smoke.py --nccl`` (4 cards) runs 11d and 11c with one rank
+per card over NCCL instead of sharing one card over gloo.
 Any failure raises and exits non-zero; without CUDA it exits non-zero
 before printing any result.
 """
@@ -731,12 +747,12 @@ def fwd_vs_plain(label, args, kw):
     return kern, err, mismatch, plain_ms
 
 
-def slab_m_cap(g, cam, cfg):
+def slab_m_cap(g, cam, cfg, n_slabs=N_SLABS):
     """The per-slab pair capacity, right-sized from a probe: 1.3x the
     fullest slab's pairs. Returns (m_cap, pairs per slab)."""
     with torch.no_grad():
         probe = prim_shard.build_slab_entries(
-            g, cam, W, H, cfg, n_slabs=N_SLABS,
+            g, cam, W, H, cfg, n_slabs=n_slabs,
             m_cap=int(N_GAUSS * cfg.pairs_per_gaussian))
     pairs = [int(e.binning.num_pairs) for e in probe]
     check(max(int(e.binning.overflow) for e in probe) == 0, "probe overflow")
@@ -1233,39 +1249,39 @@ def slab_phase(g, cams, cam, gt, cfg, m_cap, pairs):
     return slab_launches, band_launches
 
 
-def band_pairs(g, cam, cfg):
+def band_pairs(g, cam, cfg, n=N_SHARDS):
     """pairs[k][o]: the (tile, gaussian) pairs that owner o's rows put into
-    shard k's band of tile rows, for N_SHARDS row shards and bands."""
+    shard k's band of tile rows, for n row shards and bands."""
     with torch.no_grad():
         pre = rasterize.build_entries(g, cam, W, H, cfg).pre
     th, tw = cfg.tile_h, cfg.tile_w
-    rows_loc = -(-(-(-H // th)) // N_SHARDS)
+    rows_loc = -(-(-(-H // th)) // n)
     valid = (pre.radius > 0) & (pre.rx > 0) & (pre.ry > 0)
     table = []
-    for k in range(N_SHARDS):
+    for k in range(n):
         x0, y0, x1, y1 = binning_lib.tile_rect(
             pre.mean2d, pre.rx, pre.ry, -(-W // tw), rows_loc, th, tw,
             tile_row_base=k * rows_loc)
         counts = torch.where(valid, torch.clamp(x1 - x0, min=0)
                              * torch.clamp(y1 - y0, min=0), 0)
-        table.append(counts.reshape(N_SHARDS, -1).sum(dim=1).tolist())
+        table.append(counts.reshape(n, -1).sum(dim=1).tolist())
     return table
 
 
-def sharded_setup(g, cams, cfg):
-    """The sharded paths' config, its pair capacity right-sized from a
-    probe of every camera of phase 7: a shard's list must hold 1.3x the
-    fullest band's pairs, and in the slab transient every arriving slab
-    gets a quarter of that list to itself, so a quarter must hold 1.3x the
-    most any one owner puts into any band. Returns (config, per-shard
-    capacity, the first camera's pairs[k][o])."""
-    tables = [band_pairs(g, cam, cfg) for cam in cams]
+def sharded_setup(g, cams, cfg, n=N_SHARDS):
+    """The sharded paths' config for n shards, its pair capacity
+    right-sized from a probe of every camera of phase 7: a shard's list
+    must hold 1.3x the fullest band's pairs, and in the slab transient
+    every arriving slab gets 1/n of that list to itself, so 1/n must hold
+    1.3x the most any one owner puts into any band. Returns (config,
+    per-shard capacity, the first camera's pairs[k][o])."""
+    tables = [band_pairs(g, cam, cfg, n) for cam in cams]
     per_band = max(sum(row) for t in tables for row in t)
     per_slab = max(max(row) for t in tables for row in t)
-    need = int(1.3 * max(per_band, N_SHARDS * per_slab))
+    need = int(1.3 * max(per_band, n * per_slab))
     scfg = dataclasses.replace(
-        cfg, pairs_per_gaussian=(need + cfg.chunk) * N_SHARDS / (1.5 * N_GAUSS))
-    m_loc = sharded.shard_capacity(N_GAUSS, scfg, N_SHARDS)
+        cfg, pairs_per_gaussian=(need + cfg.chunk) * n / (1.5 * N_GAUSS))
+    m_loc = sharded.shard_capacity(N_GAUSS, scfg, n)
     check(need <= m_loc <= need + 2 * cfg.chunk,
           f"per-shard capacity {m_loc}, wanted {need}")
     return scfg, m_loc, tables[0]
@@ -1872,8 +1888,9 @@ def loop_phase(dev, root):
           f"capacity {cap} ({cap // N_SHARDS} rows/shard), retries "
           f"{s_retries}, losses {[round(x, 6) for x in losses_s]}, "
           f"launches {shard_launches}", flush=True)
-    return launches, shard_launches, dict(src=src, model=model_a,
-                                          state=state_a, ckpt=ckpt_path)
+    return launches, shard_launches, dict(
+        src=src, model=model_a, state=state_a, ckpt=ckpt_path,
+        n_eval=n_eval // 2)
 
 
 # ---------------------------------------------------------------- phase 9
@@ -2312,15 +2329,14 @@ def view_phase(dev, root, src, model, state, ckpt):
 # 10a a world of one rank over NCCL in this process, on phase 5's scene;
 # 10b two ranks in two processes that share the card over gloo (NCCL
 # refuses two ranks on one card), each with one of phase 8's 1080p cameras:
-# one DP step against the two-camera step in one process, then the loop;
-# 10c the 2-D step, 2 ranks x DP_SHARDS local row shards, ring. A rank is
-# this script started again with ``--dp-rank <spec>``.
+# one DP step against the two-camera step in one process, then the loop.
+# A rank is this script started again with ``--dp-rank <spec>``. (The 2-D
+# step that was 10c runs on JAX's layout in phase 11c.)
 DP_STEPS = 5
 DP_RANKS = 2
-DP_SHARDS = 2
 DP_LOOP_ITERS = 20
 DP_LOOP_OPT = dict(LOOP_OPT, iterations=DP_LOOP_ITERS)   # densify at 15
-DP_TIMEOUT = 600           # seconds for both ranks of 10b and 10c together
+DP_TIMEOUT = 600           # seconds for both ranks of 10b together
 DP_GROUP_TIMEOUT = 120     # a collective waits no longer for a rank
 DP_SUM_FLOATS = 59 + 2     # per row: the gradients, accum and denom
 DP_MAX_BYTES = 8           # per row of the max buffer (float64 radii)
@@ -2519,15 +2535,13 @@ def two_camera_reference(state, views, opt, cfg):
     return new, total(lambda o: o[0]) / n, grads, accum, radii > 0
 
 
-def dp_rank_step(spec, rank, dev):
-    """10b's step and 10c on this rank: the scene of phase 8 (Scene from
-    its point cloud, the loop's capacity), this rank's camera; rank 0 also
-    computes the two-camera step in one process."""
+def dp_scene_state(spec, dev):
+    """Phase 8's scene (Scene from its point cloud, the loop's capacity) on
+    ``dev``: (initial state, the first DP_RANKS cameras' step inputs)."""
     import random
 
     from gsplat_tpu_torch.config import ModelConfig
     from gsplat_tpu_torch.parallel import dp as dp_lib
-    from gsplat_tpu_torch.parallel import mesh as mesh_lib
     from gsplat_tpu_torch.scene import Scene
     random.seed(0)
     scene = Scene(ModelConfig(source_path=spec["src"], model_path="",
@@ -2540,13 +2554,19 @@ def dp_rank_step(spec, rank, dev):
     bg = torch.zeros(3, device=dev)
     views = [(*dp_lib.camera_inputs(c, dev), bg)
              for c in scene.getTrainCameras()[:DP_RANKS]]
+    return state, views
+
+
+def dp_rank_step(spec, rank, dev):
+    """10b's step on this rank: this rank's camera of phase 8's scene; rank
+    0 also computes the two-camera step in one process."""
+    from gsplat_tpu_torch.parallel import dp as dp_lib
+    from gsplat_tpu_torch.parallel import mesh as mesh_lib
+    state, views = dp_scene_state(spec, dev)
     opt, cfg = OptimizationConfig(), RasterizerConfig()
     mesh = mesh_lib.make_mesh((("data", -1),))
-    kw = dict(image_width=W, image_height=H, opt=opt, rcfg=cfg,
-              spatial_lr_scale=1.0)
-    step = dp_lib.make_dp_train_step(mesh, **kw)
-    step2d = sharded.make_sharded_dp_train_step(mesh, DP_SHARDS,
-                                                transient="ring", **kw)
+    step = dp_lib.make_dp_train_step(mesh, image_width=W, image_height=H,
+                                     opt=opt, rcfg=cfg, spatial_lr_scale=1.0)
     out = {}
     with deterministic():
         reset_launches()
@@ -2557,42 +2577,12 @@ def dp_rank_step(spec, rank, dev):
         out["step_digest"] = state_digest(s_dp)
         out["step_loss"] = float(a_dp.loss)
         if rank == 0:
-            ref, ref_loss, ref_grads, ref_accum, vis = two_camera_reference(
-                state, views, opt, cfg)
+            ref, ref_loss, _, _, _ = two_camera_reference(state, views, opt,
+                                                          cfg)
             check(states_equal(s_dp, ref) and torch.equal(a_dp.loss,
                                                           ref_loss),
                   "the DP step differs from the two-camera step")
             out["reference_digest"] = state_digest(ref)
-            del ref
-    del s_dp
-
-    # 10c: the 2-D step from the same state, DP_SHARDS row shards
-    reset_launches()
-    t = time.perf_counter()
-    s2, a2 = step2d(sharded.shard_state(state, DP_SHARDS), *views[rank])
-    torch.cuda.synchronize()
-    out["step2d_ms"] = (time.perf_counter() - t) * 1e3
-    out["step2d_launches"] = read_launches()
-    check(int(a2.overflow) == 0, "2-D step overflow")
-    out["step2d_digest"] = state_digest(s2)
-    out["step2d_loss"] = float(a2.loss)
-    if rank == 0:
-        loss, want = float(a2.loss), float(ref_loss)
-        check(abs(loss - want) <= 1e-6 * abs(want) + 1e-7,
-              f"2-D step loss {loss} vs the two-camera step's {want}")
-        # the step's gradients from Adam's first moment (mu = 0.1 g from
-        # zero moments), and its accum increment from the statistics
-        # (a fresh scene has SH degree 0 active and isotropic scales: no
-        # gradient of f_rest or rotation, here as there)
-        want = dict(ref_grads, accum=ref_accum)
-        got = {k: s2.adam.mu[k] / 0.1 for k in ref_grads}
-        got["accum"] = s2.stats.xyz_gradient_accum
-        for k in [k for k, v in want.items() if not bool(v.any())]:
-            check(not bool(got.pop(k).any()), f"2-D step: a gradient of "
-                  f"{k} where the two-camera step has none")
-            del want[k]
-        out["step2d_worst"] = hold_grads(
-            "2-D step, ring", "the two-camera step's", got, want, vis)
     return out
 
 
@@ -2681,9 +2671,8 @@ def dp_rank_loop(spec, rank, dev):
 
 
 def dp_rank_main(spec_path):
-    """One rank of 10b / 10c: joins the gloo group on the shared card, runs
-    the step, the 2-D step and the loop, prints one ``DPRESULT`` JSON
-    line."""
+    """One rank of 10b: joins the gloo group on the shared card, runs the
+    step and the loop, prints one ``DPRESULT`` JSON line."""
     from datetime import timedelta
 
     import torch.distributed as dist
@@ -2706,33 +2695,32 @@ def dp_rank_main(spec_path):
     print("DPRESULT " + json.dumps(dict(out, rank=rank)), flush=True)
 
 
-def dp_gloo_phase(src, root):
-    """10b and 10c: DP_RANKS processes of this script sharing the card over
-    gloo, each within DP_TIMEOUT; every rank's exit code, their agreement
-    and rank 0's gates. Returns rank 0's launch counts of the loop and of
-    the 2-D step."""
+def run_ranks(n, flag, spec, timeout, label, tag):
+    """This script started ``n`` times as ranks (``flag <spec path>``)
+    that share the card over gloo, all within ``timeout`` seconds; their
+    output echoed, each rank's exit code held to 0. Returns (every rank's
+    ``tag`` JSON result, by rank; the seconds all took)."""
     import sys
-    model = os.path.join(root, "loop_dp")
-    spec_path = os.path.join(root, "dp_spec.json")
+    spec_path = os.path.join(spec["root"], f"{flag.strip('-')}.json")
     with open(spec_path, "w") as f:
-        json.dump(dict(src=src, model=model, device="cuda:0"), f)
+        json.dump(spec, f)
     env = dict(os.environ, MASTER_ADDR="127.0.0.1",
-               MASTER_PORT=str(free_port()), WORLD_SIZE=str(DP_RANKS),
-               LOCAL_WORLD_SIZE=str(DP_RANKS))
+               MASTER_PORT=str(free_port()), WORLD_SIZE=str(n),
+               LOCAL_WORLD_SIZE=str(n))
     t = time.perf_counter()
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--dp-rank", spec_path],
+        [sys.executable, os.path.abspath(__file__), flag, spec_path],
         env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(DP_RANKS)]
+        for r in range(n)]
     outs = []
     try:
         for p in procs:
-            left = DP_TIMEOUT - (time.perf_counter() - t)
+            left = timeout - (time.perf_counter() - t)
             try:
                 outs.append(p.communicate(timeout=max(left, 1.0))[0])
             except subprocess.TimeoutExpired:
-                raise RuntimeError(f"a rank of 10b/10c passed {DP_TIMEOUT} s")
+                raise RuntimeError(f"a rank of {label} passed {timeout} s")
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2742,16 +2730,28 @@ def dp_gloo_phase(src, root):
     results = []
     for r, (p, out) in enumerate(zip(procs, outs)):
         for line in out.splitlines():
-            if not line.startswith("DPRESULT"):
+            if not line.startswith(tag):
                 print(f"[rank {r}] {line}", flush=True)
-        check(p.returncode == 0, f"rank {r} of 10b/10c exited with "
+        check(p.returncode == 0, f"rank {r} of {label} exited with "
               f"{p.returncode}")
-        got = [ln for ln in out.splitlines() if ln.startswith("DPRESULT ")]
-        check(len(got) == 1, f"rank {r}: no result")
-        results.append(json.loads(got[0][len("DPRESULT "):]))
+        got = [ln for ln in out.splitlines() if ln.startswith(tag + " ")]
+        check(len(got) == 1, f"rank {r} of {label}: no result")
+        results.append(json.loads(got[0][len(tag) + 1:]))
+    return results, wall_s
+
+
+def dp_gloo_phase(src, root):
+    """10b: DP_RANKS processes of this script sharing the card over gloo,
+    each within DP_TIMEOUT; every rank's exit code, their agreement and
+    rank 0's gates. Returns rank 0's launch counts of the loop."""
+    model = os.path.join(root, "loop_dp")
+    results, wall_s = run_ranks(
+        DP_RANKS, "--dp-rank", dict(src=src, model=model, device=RANK_DEVICE,
+                                    root=root), DP_TIMEOUT, "10b",
+        "DPRESULT")
     r0, r1 = results
-    for key in ("step_digest", "step_loss", "step2d_digest", "step2d_loss",
-                "loop_digest", "picks", "live", "capacity"):
+    for key in ("step_digest", "step_loss", "loop_digest", "picks", "live",
+                "capacity"):
         check(r0[key] == r1[key], f"the ranks differ in {key}: {r0[key]} / "
               f"{r1[key]}")
     check(r0["step_digest"] == r0["reference_digest"],
@@ -2763,9 +2763,6 @@ def dp_gloo_phase(src, root):
     for r in results:
         check_launches(r["step_launches"], "per_step", 1,
                        f"rank {r['rank']}'s DP step")
-        want = expected_loop_launches(1, 0, sharded_shards=DP_SHARDS)
-        check(r["step2d_launches"] == want, f"rank {r['rank']}'s 2-D step "
-              f"launched {r['step2d_launches']}, expected {want}")
     log = [x for x in loop_log(model) if "train_loss_patches/total_loss" in x]
     check([x["step"] for x in log] == list(range(1, DP_LOOP_ITERS + 1))
           and all(np.isfinite(x["train_loss_patches/total_loss"])
@@ -2776,9 +2773,7 @@ def dp_gloo_phase(src, root):
     per_iter = np.sum(reduce_ms) / (DP_LOOP_ITERS + r0["retries"])
     print(f"dp gloo, {DP_RANKS} ranks sharing the card, {W}x{H}, phase 8's "
           f"scene: one DP step equal to the two-camera step bit for bit, "
-          f"the ranks' states equal; 2-D step ({DP_SHARDS} shards, ring) "
-          f"{r0['step2d_ms']:.1f} ms, worst gradient error "
-          f"{r0['step2d_worst']:.3e} of a field's largest; loop "
+          f"the ranks' states equal; loop "
           f"{DP_LOOP_ITERS} iterations in {r0['loop_s']:.2f} s, iteration "
           f"ms median {np.median(iter_ms):.3f} (rank 0, iter_time; min "
           f"{min(iter_ms):.3f}, max {max(iter_ms):.3f}), all-reduces "
@@ -2788,9 +2783,780 @@ def dp_gloo_phase(src, root):
           f"gloo), retries {r0['retries']}, final capacity "
           f"{r0['capacity']}, live {r0['live']}, batches equal on both "
           f"ranks ({len(r0['picks'])}), rank 1 wrote nothing; launches "
-          f"{r0['loop_launches']}; 2-D step {r0['step2d_launches']}; both "
-          f"ranks in {wall_s:.1f} s", flush=True)
-    return r0["loop_launches"], r0["step2d_launches"]
+          f"{r0['loop_launches']}; both ranks in {wall_s:.1f} s",
+          flush=True)
+    return r0["loop_launches"]
+
+
+# ---------------------------------------------------------------- phase 11
+# One rank per part (parallel/__init__.py RankParts): the ranks are this
+# script started again, sharing the card over gloo (NCCL refuses two ranks
+# on one card), gloo's point-to-point messages staged through pinned host
+# memory. 11a gaussian-sharded storage over SR_RANKS ranks on phase 5's
+# scene (each rank holding N_GAUSS / SR_RANKS rows): per transient
+# N_POSES renders, the images bit for bit this process's 2-shard local
+# form, 1 + SR_STEPS steps and one gradient call held to the single
+# render's; 11b the slab and band renders over SR_RANKS ranks at phase 6's
+# gates, the images bit for bit the local forms; 11d train(...,
+# shard_gaussians=True) on phase 8's scene for SR_LOOP_ITERS iterations
+# with a densify event that outgrows the capacity, the rows gathered equal
+# to this process's n_shards=2 loop bit for bit (both under torch's
+# deterministic algorithms), rank 0's checkpoint its file; 11c JAX's 2-D
+# layout, TWO_D_RANKS ranks as data 2 x prim 2, ring, one step from 10b's
+# state against the two-camera step at phase 7's gates. Exact launches on
+# every rank.
+SR_RANKS = 2
+SR_STEPS = 3
+SR_TIMEOUT = 600
+SR_LOOP_ITERS = 10
+SR_LOOP_OPT = dict(iterations=SR_LOOP_ITERS, densify_from_iter=1,
+                   densification_interval=6, opacity_reset_interval=3000,
+                   densify_grad_threshold=LOOP_THRESHOLD)    # densify at 6
+TWO_D_RANKS = 4
+RANK_DEVICE = "cuda:0"      # the card the ranks share
+# per part and call on a rank: one band or slab each
+PER_PART = dict(composite_fwd=1, composite_bwd=1, scan=1, ssim_fwd=1,
+                ssim_bwd=1, slab_tmit=0)
+
+
+def drop_zero_fields(label, got, want):
+    """Take out of both the fields the reference has no gradient in (a
+    fresh scene's isotropic scales give none of rotation), holding that the
+    split form has none there either."""
+    got, want = dict(got), dict(want)
+    for k in [k for k, v in want.items() if not bool(v.any())]:
+        check(not bool(got.pop(k).any()), f"{label}: a gradient of {k} "
+              f"where the reference has none")
+        del want[k]
+    return got, want
+
+
+def launches_of(**counts):
+    return {name: counts.get(name, 0) for name in KERNELS}
+
+
+def digest(t):
+    import hashlib
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()
+                          ).hexdigest()[:16]
+
+
+@contextlib.contextmanager
+def timed_collectives(sink):
+    """The host ms of every all-gather, all-reduce, broadcast and
+    point-to-point exchange of the parts' helpers, each between two
+    synchronisations, into ``sink``."""
+    import torch.distributed as dist
+
+    import gsplat_tpu_torch.parallel as par
+    orig = dict(all_gather=dist.all_gather, all_reduce=dist.all_reduce,
+                broadcast=dist.broadcast, p2p=par.exchange)
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            sink.setdefault(name, []).append((time.perf_counter() - t) * 1e3)
+            return out
+        return call
+    for name in ("all_gather", "all_reduce", "broadcast"):
+        setattr(dist, name, timed(name, orig[name]))
+    par.exchange = timed("p2p", orig["p2p"])
+    try:
+        yield sink
+    finally:
+        for name in ("all_gather", "all_reduce", "broadcast"):
+            setattr(dist, name, orig[name])
+        par.exchange = orig["p2p"]
+
+
+def collective_line(sink):
+    return ", ".join(f"{k} {len(v)} x, {sum(v):.2f} ms"
+                     for k, v in sorted(sink.items()))
+
+
+def step_transient_gb(fn):
+    """GB that ``fn()`` allocates above what was allocated before it, at
+    its peak: a step's transients, the state it steps from not counted."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - before) / 1e9
+
+
+def held_rows(state):
+    return state.gaussians.capacity, sum(
+        t.numel() * t.element_size() for t in trainer.row_tensors(state))
+
+
+def shard_ranks_prep(tg, tcam, tgt, tcfg, cams, root):
+    """What 11a holds the ranks to, from this process on phase 5's scene:
+    the config of SR_RANKS shards, the single render's loss and gradients
+    under the sharded loss (to a file), and per transient the digests of
+    the SR_RANKS-shard local form's frames and the peak memory of its
+    step. Returns the ranks' spec."""
+    dev = tgt.device
+    scene_path = os.path.join(root, "phase5_scene.pt")
+    torch.save({k: getattr(tg, k).cpu() for k in gm.TENSOR_FIELDS},
+               scene_path)
+    scfg, m_loc, pairs = sharded_setup(tg, [tcam] + cams, tcfg, SR_RANKS)
+    bg = torch.zeros(3, device=dev)
+    opt = OptimizationConfig()
+    state = trainer.init_state(tg, 1)
+    loss1, want, want_tap, radii1 = single_loss_grads(
+        tg, state.exposure, tcam, tgt, bg, tcfg, opt)
+    want_path = os.path.join(root, "shard_want.pt")
+    torch.save(dict(loss=loss1, radii=radii1.cpu(), tap=want_tap.cpu(),
+                    **{k: v.cpu() for k, v in want.items()}), want_path)
+    ones = torch.ones((1, H, W), device=dev)
+    zeros = torch.zeros((1, H, W), device=dev)
+    kw = dict(image_width=W, image_height=H)
+    frames, local_peak, local_ms = {}, {}, {}
+    for tr in sharded.TRANSIENTS:
+        render = sharded.make_sharded_render(SR_RANKS, cfg=scfg,
+                                             transient=tr, **kw)
+        with torch.no_grad():
+            outs = [render(tg, c, bg) for c in cams]
+        check(all(int(o.overflow) == 0 for o in outs), f"{tr} overflow")
+        frames[tr] = [(digest(o.image), digest(o.invdepth)) for o in outs]
+        del outs
+        step = sharded.make_sharded_train_step(
+            SR_RANKS, opt=opt, rcfg=scfg, spatial_lr_scale=1.0,
+            transient=tr, **kw)
+        step(state, tcam, tgt, ones, zeros, zeros, bg)      # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        local_peak[tr] = step_transient_gb(
+            lambda: step(state, tcam, tgt, ones, zeros, zeros, bg))
+        local_ms[tr] = (time.perf_counter() - t) * 1e3
+    m_slab, slab_pairs = slab_m_cap(tg, tcam, tcfg, SR_RANKS)
+    state_gb = held_rows(state)[1] / 1e9
+    print(f"11 prep: {SR_RANKS} shards, per-shard capacity {m_loc} "
+          f"(pairs_per_gaussian {scfg.pairs_per_gaussian:.3f}), pairs of "
+          f"owner o in band k {pairs}; one step of the one-process "
+          f"{SR_RANKS}-shard local form: ms {local_ms}, its transients at "
+          f"their peak (GB above the {state_gb:.3f} GB of per-gaussian "
+          f"state it holds) {local_peak}; per-slab m_cap of {SR_RANKS} "
+          f"slabs {m_slab} (pairs {slab_pairs})", flush=True)
+    return dict(ppg=scfg.pairs_per_gaussian, want=want_path, frames=frames,
+                local_peak=local_peak, local_ms=local_ms, m_slab=m_slab,
+                local_state_gb=state_gb,
+                scene=scene_path, cfg=dict(
+                    pairs_per_gaussian=tcfg.pairs_per_gaussian,
+                    pad_cap=tcfg.pad_cap))
+
+
+def phase5_scene(spec, dev):
+    """Phase 5's scene as this process made it (its gaussians from the
+    file the parent wrote, its camera, ground truth and config)."""
+    g = torch.load(spec["scene"])
+    g = gm.GaussianParams(active_sh_degree=3,
+                          **{k: v.to(dev) for k, v in g.items()})
+    rng = np.random.default_rng(SEED)
+    bench_points(rng)                     # bench_train_setup's draws
+    gt = torch.tensor(rng.uniform(0, 1, (3, H, W)).astype(np.float32),
+                      device=dev)
+    cam = CameraView.create(np.eye(3), np.zeros(3), fovx=1.2, fovy=0.9,
+                            device=dev)
+    return g, cam, gt, RasterizerConfig(**spec["cfg"])
+
+
+def sr_split(spec, rank, dev):
+    """11b on this rank: the slab and band renders with one part per rank
+    on phase 5's scene (every rank holds it whole), at phase 6's gates;
+    the images bit for bit the local forms'."""
+    from gsplat_tpu_torch.parallel import RankParts
+    from gsplat_tpu_torch.parallel import mesh as mesh_lib
+    tg, tcam, tgt, tcfg = phase5_scene(spec, dev)
+    cams = poses(dev)
+    bg = torch.zeros(3, device=dev)
+    slabs = RankParts(mesh_lib.make_mesh((("prim", -1),)), "prim")
+    bands = RankParts(mesh_lib.make_mesh((("tile", -1),)), "tile")
+
+    def slab(p, c, parts=slabs):
+        return prim_shard.render_prim_sharded(
+            p, c, W, H, bg, tcfg, n_slabs=parts, m_cap=spec["m_slab"])
+
+    def band(p, c, parts=bands):
+        return tile_shard.render_tile_sharded(p, c, W, H, bg, tcfg,
+                                              n_bands=parts)
+    out = {}
+    with torch.no_grad():
+        singles = [rasterize.render(tg, c, W, H, bg, tcfg) for c in cams]
+        local = [(slab(tg, c, SR_RANKS)[0], band(tg, c, SR_RANKS)[0])
+                 for c in cams]
+        slab(tg, cams[0])                                   # warm-ups
+        band(tg, cams[0])
+        for name, fn, li, tol in (("slab", slab, 0, 1e-3),
+                                  ("band", band, 1, None)):
+            torch.cuda.synchronize()
+            reset_launches()
+            ms = []
+            for c, single, loc in zip(cams, singles, local):
+                t = time.perf_counter()
+                got = fn(tg, c)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+                img, ovf = got[0], got[-1]
+                check(int(ovf) == 0, f"{name} overflow {int(ovf)}")
+                check(torch.equal(img, loc[li]), f"rank {rank}: the {name} "
+                      f"render over ranks differs from the local form")
+                err = float((img - single.image).abs().max())
+                check(err <= tol if tol else torch.allclose(
+                    img, single.image, **SLAB_TOL), f"rank {rank}: {name} "
+                    f"render is {err} from the single render")
+            got = read_launches()
+            tmit = N_POSES if (name == "slab" and rank < SR_RANKS - 1) else 0
+            want = launches_of(composite_fwd=N_POSES, slab_tmit=tmit)
+            check(got == want, f"rank {rank}: {name} renders launched {got},"
+                  f" expected {want}")
+            out[f"{name}_ms"] = ms
+            out[f"{name}_fwd_launches"] = got
+    del singles, local
+    loss1, want = l1_grads(
+        lambda p: rasterize.render(p, tcam, W, H, bg, tcfg).image, tg, tgt)
+    with torch.no_grad():
+        vis = rasterize.render(tg, tcam, W, H, bg, tcfg).radii > 0
+    for name, fn in (("slab", slab), ("band", band)):
+        reset_launches()
+        t = time.perf_counter()
+        loss, grads = l1_grads(lambda p: fn(p, tcam)[0], tg, tgt)
+        torch.cuda.synchronize()
+        out[f"{name}_fb_ms"] = (time.perf_counter() - t) * 1e3
+        got = read_launches()
+        tmit = 1 if (name == "slab" and rank < SR_RANKS - 1) else 0
+        want_l = launches_of(composite_fwd=1, composite_bwd=1, slab_tmit=tmit)
+        check(got == want_l, f"rank {rank}: {name} forward plus backward "
+              f"launched {got}, expected {want_l}")
+        out[f"{name}_fb_launches"] = got
+        check(abs(loss - loss1) <= 1e-4, f"{name} loss {loss} vs {loss1}")
+        if name == "slab":
+            label = f"rank {rank}: slab over ranks"
+            out["slab_worst"] = hold_grads(
+                label, "the single render's",
+                *drop_zero_fields(label, grads, want), vis)
+        else:
+            for k, v in grads.items():
+                check(torch.allclose(v, want[k], **GRAD_TOL),
+                      f"rank {rank}: band gradient of {k} differs by "
+                      f"{float((v - want[k]).abs().max())}")
+    print(f"11b rank {rank}: slab render over {SR_RANKS} ranks, frame ms "
+          f"median {np.median(out['slab_ms']):.3f}, forward plus backward "
+          f"{out['slab_fb_ms']:.3f} ms; band render frame ms median "
+          f"{np.median(out['band_ms']):.3f}, forward plus backward "
+          f"{out['band_fb_ms']:.3f} ms; images bit for bit the local "
+          f"forms'", flush=True)
+    return out
+
+
+def sr_storage(spec, rank, dev):
+    """11a on this rank: its N_GAUSS / SR_RANKS rows of phase 5's scene,
+    per transient N_POSES renders (their digests), 1 + SR_STEPS steps, one
+    gradient call held to the single render's rows, the collectives' host
+    ms of one more step, one profiled step."""
+    from gsplat_tpu_torch.parallel import RankParts
+    from gsplat_tpu_torch.parallel import mesh as mesh_lib
+    parts = RankParts(mesh_lib.make_mesh((("prim", -1),)), "prim")
+    tg, tcam, tgt, tcfg = phase5_scene(spec, dev)
+    rows = sharded.own_rows(parts, N_GAUSS)
+    g = dataclasses.replace(tg, **{k: getattr(tg, k)[rows].clone()
+                                   for k in gm.TENSOR_FIELDS})
+    del tg
+    torch.cuda.empty_cache()
+    cams = poses(dev)
+    scfg = dataclasses.replace(tcfg, pairs_per_gaussian=spec["ppg"])
+    state = trainer.init_state(g, 1)
+    n_rows, n_bytes = held_rows(state)
+    check(n_rows == N_GAUSS // SR_RANKS, f"rank {rank} holds {n_rows} rows")
+    ref = torch.load(spec["want"])
+    want = {k: ref[k][rows].to(dev) for k in gm.TRAINABLE_FIELDS}
+    want["tap"] = ref["tap"][rows].to(dev)
+    vis = ref["radii"][rows].to(dev) > 0
+    bg = torch.zeros(3, device=dev)
+    ones = torch.ones((1, H, W), device=dev)
+    zeros = torch.zeros((1, H, W), device=dev)
+    opt = OptimizationConfig()
+    kw = dict(image_width=W, image_height=H)
+    out = dict(rows=n_rows, bytes=n_bytes, frames={}, peak={}, launches={},
+               transient={})
+    total = launches_of()
+    for tr in sharded.TRANSIENTS:
+        render = sharded.make_sharded_render(parts, cfg=scfg, transient=tr,
+                                             **kw)
+        step = sharded.make_sharded_train_step(
+            parts, opt=opt, rcfg=scfg, spatial_lr_scale=1.0, transient=tr,
+            **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            render(g, cams[0], bg)                           # warm-up
+            torch.cuda.synchronize()
+            reset_launches()
+            frame_ms, frames = [], []
+            for c in cams:
+                t = time.perf_counter()
+                o = render(g, c, bg)
+                torch.cuda.synchronize()
+                frame_ms.append((time.perf_counter() - t) * 1e3)
+                check(int(o.overflow) == 0, f"{tr} overflow")
+                check(o.radii.shape[0] == n_rows, f"{tr}: radii rows")
+                frames.append((digest(o.image), digest(o.invdepth)))
+            got = read_launches()
+            check(got == launches_of(composite_fwd=N_POSES),
+                  f"rank {rank}: {N_POSES} {tr} renders launched {got}")
+            total = {k: total[k] + got[k] for k in total}
+        s, aux = step(state, tcam, tgt, ones, zeros, zeros, bg)  # warm-up
+        peak_all = torch.cuda.max_memory_allocated() / 1e9
+        got_step = []
+        out["transient"][tr] = step_transient_gb(
+            lambda: got_step.append(step(state, tcam, tgt, ones, zeros,
+                                         zeros, bg)))
+        del got_step
+        torch.cuda.synchronize()
+        reset_launches()
+        step_ms, step_losses = [], []
+        for _ in range(SR_STEPS):
+            t = time.perf_counter()
+            s, aux = step(s, tcam, tgt, ones, zeros, zeros, bg)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            step_losses.append(float(aux.loss))
+            check(int(aux.overflow) == 0, f"{tr} step overflow")
+        check(all(np.isfinite(step_losses)), f"loss {step_losses}")
+        check(s.gaussians.capacity == n_rows
+              and s.adam.mu["xyz"].shape[0] == n_rows
+              and s.stats.denom.shape[0] == n_rows, f"{tr}: rows held")
+        loss, _, _, bands, grads, _, tap = sharded.sharded_loss_grads(
+            g, state.exposure, tcam, tgt, ones, zeros, zeros, bg,
+            state.step + 1, n_shards=parts, transient=tr, opt=opt,
+            rcfg=scfg, antialiasing=False, train_test_exp=False,
+            use_depth=False, **kw)
+        torch.cuda.synchronize()
+        got = read_launches()
+        calls = SR_STEPS + 1
+        want_l = {k: v * calls for k, v in launches_of(**PER_PART).items()}
+        if tr == "replicated":
+            want_l["scan"] = 0
+        check(got == want_l, f"rank {rank}: {SR_STEPS} {tr} steps and one "
+              f"gradient call launched {got}, expected {want_l}")
+        total = {k: total[k] + got[k] for k in total}
+        out["peak"][tr] = max(peak_all,
+                              torch.cuda.max_memory_allocated() / 1e9)
+        check(abs(float(loss) - ref["loss"]) <= 1e-6 * abs(ref["loss"])
+              + 1e-7, f"{tr} loss {float(loss)} vs single {ref['loss']}")
+        label = f"rank {rank}: {tr} over ranks"
+        worst = hold_grads(label, "the single render's rows",
+                           *drop_zero_fields(label, dict(grads, tap=tap),
+                                             want), vis)
+        sink = {}
+        with timed_collectives(sink):
+            step(s, tcam, tgt, ones, zeros, zeros, bg)
+        busy = profile_call(f"rank {rank}: one {tr} step over ranks",
+                            lambda: step(s, tcam, tgt, ones, zeros, zeros,
+                                         bg))
+        out["frames"][tr] = frames
+        print(f"11a rank {rank}, {tr}: {n_rows} rows held ({n_bytes / 1e6:.1f}"
+              f" MB of per-gaussian state), frame ms median "
+              f"{np.median(frame_ms):.3f} "
+              f"({[round(x, 3) for x in frame_ms]}), "
+              f"step ms median {np.median(step_ms):.3f} "
+              f"({[round(x, 3) for x in step_ms]}), device busy ms of one "
+              f"step {busy:.3f}, collectives of one step (host ms, between "
+              f"synchronisations): {collective_line(sink)}; worst gradient "
+              f"error {worst:.3e} of a field's largest; a step's transients "
+              f"at their peak {out['transient'][tr]:.3f} GB above its "
+              f"{n_bytes / 1e9:.3f} GB of state (one-process {SR_RANKS}-"
+              f"shard local form: {spec['local_peak'][tr]:.3f} GB above "
+              f"{spec['local_state_gb']:.3f}); this process's peak "
+              f"{out['peak'][tr]:.3f} GB; launches {got}", flush=True)
+        del s, aux, bands, grads, tap
+        torch.cuda.empty_cache()
+    out["launches"] = total
+    return out
+
+
+def sr_loop(spec, rank, dev):
+    """11d on this rank: train(..., shard_gaussians=True) on phase 8's
+    scene under torch's deterministic algorithms, its rows gathered to rank
+    0 afterwards and digested there."""
+    import contextlib as ctx
+    import random
+    import sys
+
+    from gsplat_tpu_torch.config import ModelConfig, PipelineConfig
+    from gsplat_tpu_torch.parallel import RankParts
+    from gsplat_tpu_torch.parallel import mesh as mesh_lib
+    from gsplat_tpu_torch.parallel import rows as rows_lib
+    from gsplat_tpu_torch.train import loop
+    model = spec["loop_model"]
+    writes, densify = [], []
+
+    def audit(event, args):
+        if event == "open":
+            path, mode, flags = args
+            writing = ((isinstance(mode, str) and any(c in mode
+                                                      for c in "wax+"))
+                       or (isinstance(flags, int) and flags
+                           & (os.O_WRONLY | os.O_RDWR | os.O_CREAT)))
+            if writing and str(path).startswith(model):
+                writes.append(str(path))
+        elif event in ("os.mkdir", "shutil.copyfile") and \
+                str(args[0]).startswith(model):
+            writes.append(str(args[0]))
+
+    dens = trainer.densify_step
+
+    peaks = []
+
+    def dens_rec(state, *a, **kw):
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated())
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = dens(state, *a, **kw)
+        torch.cuda.synchronize()
+        # (iteration, ms, overflow, MB held before, MB the event added at
+        # its peak)
+        densify.append((state.step, (time.perf_counter() - t) * 1e3,
+                        int(out[1]), before / 1e6,
+                        (torch.cuda.max_memory_allocated() - before) / 1e6))
+        return out
+
+    if rank > 0:
+        sys.addaudithook(audit)
+    trainer.densify_step = dens_rec
+    tee = Tee(sys.stdout)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        reset_launches()
+        random.seed(0)
+        t = time.perf_counter()
+        with deterministic(), ctx.redirect_stdout(tee):
+            _, state = loop.train(
+                ModelConfig(source_path=spec["src"], model_path=model,
+                            sh_degree=3, resolution=1, eval=True),
+                OptimizationConfig(**SR_LOOP_OPT), PipelineConfig(),
+                RasterizerConfig(), [SR_LOOP_ITERS], [SR_LOOP_ITERS],
+                [SR_LOOP_ITERS], quiet=True, shard_gaussians=True,
+                capacity_multiplier=1.0, device=dev)
+            torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t
+    finally:
+        trainer.densify_step = dens
+    peak = max(peaks + [torch.cuda.max_memory_allocated()]) / 1e9
+    launches = read_launches()
+    retries = tee.count("retrying frame")
+    steps = SR_LOOP_ITERS + retries
+    # the loop's default transient, replicated: no scan
+    want = dict(expected_loop_launches(steps, spec["n_eval"],
+                                       sharded_shards=1), scan=0)
+    check(launches == want, f"rank {rank}: the loop over ranks launched "
+          f"{launches}, expected {want}")
+    check([d[0] for d in densify] == [6] and densify[0][2] > 0,
+          f"rank {rank}: densify events {densify} (one, outgrowing the "
+          f"capacity)")
+    n_rows, n_bytes = held_rows(state)
+    parts = RankParts(mesh_lib.make_mesh((("prim", -1),)), "prim")
+    whole = rows_lib.gather_to_host(state, parts, mesh_lib.Hold().group)
+    out = dict(loop_launches=launches, loop_s=loop_s, retries=retries,
+               writes=writes, densify=densify, loop_rows=n_rows,
+               loop_bytes=n_bytes, loop_peak=peak)
+    if whole is not None:
+        out["loop_digest"] = state_digest(whole)
+        out["loop_capacity"] = whole.gaussians.capacity
+    print(f"11d rank {rank}: {SR_LOOP_ITERS} iterations in {loop_s:.2f} s "
+          f"({loop_s / SR_LOOP_ITERS * 1e3:.1f} ms an iteration with the "
+          f"scene's set-up), densify (iteration, ms, overflow, MB allocated "
+          f"before it, MB it added at its peak) "
+          f"{[(d[0], round(d[1], 3), d[2], *(round(x, 1) for x in d[3:]))
+              for d in densify]}"
+          f", {n_rows} rows held at the end "
+          f"({n_bytes / 1e6:.1f} MB), peak memory {peak:.2f} GB, retries "
+          f"{retries}, launches {launches}", flush=True)
+    return out
+
+
+def join_ranks(spec_path, n_ranks):
+    """A rank of phase 11 joins its group: gloo on the card the ranks
+    share (``device`` cuda:0), or, under ``--nccl``, NCCL on its own card
+    (``device`` cuda: the card of its LOCAL_RANK). Returns (spec, rank,
+    device)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from gsplat_tpu_torch.parallel import mesh as mesh_lib
+    with open(spec_path) as f:
+        spec = json.load(f)
+    backend = spec.get("backend", "gloo")
+    check(mesh_lib.init_distributed(
+        device=torch.device(spec["device"]), backend=backend,
+        timeout=timedelta(seconds=DP_GROUP_TIMEOUT)), "did not join")
+    rank, n = mesh_lib.world()
+    check(n == n_ranks and dist.get_backend() == backend, "the group")
+    return spec, rank, torch.device("cuda", torch.cuda.current_device())
+
+
+def shard_rank_main(spec_path):
+    """One rank of 11a, 11b and 11d (or of the spec's ``jobs`` of them),
+    prints one ``SRRESULT`` JSON line."""
+    import torch.distributed as dist
+    spec, rank, dev = join_ranks(spec_path, SR_RANKS)
+    jobs = dict(split=sr_split, storage=sr_storage, loop=sr_loop)
+    out = {}
+    try:
+        for name in spec.get("jobs", list(jobs)):
+            out.update(jobs[name](spec, rank, dev))
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    print("SRRESULT " + json.dumps(dict(out, rank=rank)), flush=True)
+
+
+def two_d_rank_main(spec_path):
+    """One rank of 11c: JAX's data 2 x prim 2 mesh of the ranks on the
+    shared card; one ring step of 10b's state from this rank's rows and
+    its data coordinate's camera; rank 0 holds it to the two-camera step.
+    Prints one ``TDRESULT`` JSON line."""
+    import torch.distributed as dist
+
+    from gsplat_tpu_torch.parallel import RankParts
+    from gsplat_tpu_torch.parallel import mesh as mesh_lib
+    spec, rank, dev = join_ranks(spec_path, TWO_D_RANKS)
+    try:
+        mesh = mesh_lib.make_mesh((("data", 2), ("prim", -1)))
+        parts = RankParts(mesh, "prim")
+        state, views = dp_scene_state(spec, dev)
+        opt, cfg = OptimizationConfig(), RasterizerConfig()
+        ref = None
+        if rank == 0:
+            ref = two_camera_reference(state, views, opt, cfg)
+        rows = sharded.own_rows(parts, state.gaussians.capacity)
+        state = sharded.shard_state(state, parts)
+        torch.cuda.empty_cache()
+        step = sharded.make_sharded_dp_train_step(
+            mesh, transient="ring", image_width=W, image_height=H, opt=opt,
+            rcfg=cfg, spatial_lr_scale=1.0)
+        dist.barrier()                  # rank 0's reference is done
+        reset_launches()
+        t = time.perf_counter()
+        s2, a2 = step(state, *views[mesh.coords["data"]])
+        torch.cuda.synchronize()
+        out = dict(ms=(time.perf_counter() - t) * 1e3,
+                   launches=read_launches(), loss=float(a2.loss),
+                   digest=state_digest(s2), rows=s2.gaussians.capacity,
+                   coords=mesh.coords)
+        check(int(a2.overflow) == 0, "2-D step overflow")
+        if ref is not None:
+            _, ref_loss, ref_grads, ref_accum, vis = ref
+            loss, want = float(a2.loss), float(ref_loss)
+            check(abs(loss - want) <= 1e-6 * abs(want) + 1e-7,
+                  f"2-D step loss {loss} vs the two-camera step's {want}")
+            # the step's gradients from Adam's first moment (mu = 0.1 g
+            # from zero moments) and its accum increment, on this rank's
+            # rows (a fresh scene has SH degree 0 active and isotropic
+            # scales: no gradient of f_rest or rotation, here as there)
+            want = {k: v[rows] for k, v in ref_grads.items()}
+            want["accum"] = ref_accum[rows]
+            got = {k: s2.adam.mu[k] / 0.1 for k in ref_grads}
+            got["accum"] = s2.stats.xyz_gradient_accum
+            label = "2-D step over data 2 x prim 2 ranks, ring"
+            out["worst"] = hold_grads(
+                label, "the two-camera step's rows",
+                *drop_zero_fields(label, got, want), vis[rows])
+    finally:
+        dist.destroy_process_group()
+    print("TDRESULT " + json.dumps(dict(out, rank=rank)), flush=True)
+
+
+def one_process_shard_loop(src, root):
+    """The one-process n_shards=2 loop the loop over ranks is held to, on
+    cuda:0 under torch's deterministic algorithms. Returns its model
+    directory, state digest, capacity, seconds and iteration ms."""
+    import contextlib as ctx
+    import random
+    import sys
+
+    from gsplat_tpu_torch.train import loop
+    model_one = os.path.join(root, "loop_one_2shards")
+    random.seed(0)
+    tee = Tee(sys.stdout)
+    t = time.perf_counter()
+    with deterministic(), ctx.redirect_stdout(tee):
+        from gsplat_tpu_torch.config import ModelConfig, PipelineConfig
+        _, one = loop.train(
+            ModelConfig(source_path=src, model_path=model_one, sh_degree=3,
+                        resolution=1, eval=True),
+            OptimizationConfig(**SR_LOOP_OPT), PipelineConfig(),
+            RasterizerConfig(), [SR_LOOP_ITERS], [SR_LOOP_ITERS],
+            [SR_LOOP_ITERS], quiet=True, shard_gaussians=True, n_shards=2,
+            capacity_multiplier=1.0, device=torch.device(RANK_DEVICE))
+        torch.cuda.synchronize()
+    one_s = time.perf_counter() - t
+    one_digest, one_cap = state_digest(one), one.gaussians.capacity
+    del one
+    torch.cuda.empty_cache()
+    one_ms = [x["iter_time"] * 1e3 for x in loop_log(model_one)
+              if "iter_time" in x]
+    return dict(model=model_one, digest=one_digest, cap=one_cap, s=one_s,
+                ms=one_ms)
+
+
+def hold_loop_ranks(results, one, model_ranks, label):
+    """11d's gates: the rows gathered on rank 0 equal the one-process
+    loop's bit for bit, rank 0's checkpoint its file, rank 1 writing
+    nothing. Returns the ranks' iteration ms (rank 0's log)."""
+    r0 = results[0]
+    check(r0["loop_digest"] == one["digest"]
+          and r0["loop_capacity"] == one["cap"],
+          f"{label}: the loop over ranks, its rows gathered, differs from "
+          f"the one-process {SR_RANKS}-shard loop's (capacity "
+          f"{r0['loop_capacity']} / {one['cap']})")
+    check(all(r["writes"] == [] for r in results[1:]),
+          f"{label}: rank 1 wrote {results[1]['writes']}")
+    ck = f"chkpnt{SR_LOOP_ITERS}.npz"
+    with np.load(os.path.join(one["model"], ck)) as a, \
+            np.load(os.path.join(model_ranks, ck)) as b:
+        check(set(a.files) == set(b.files) and all(
+            np.array_equal(a[k], b[k]) for k in a.files),
+            f"{label}: rank 0's checkpoint differs from the one-process "
+            f"loop's")
+    return [x["iter_time"] * 1e3 for x in loop_log(model_ranks)
+            if "train_loss_patches/total_loss" in x]
+
+
+def shard_ranks_phase(prep, src, root, n_eval):
+    """11a, 11b, 11d: SR_RANKS processes of this script sharing the card
+    over gloo; their gates against this process's forms. Returns rank 0's
+    launch counts of 11a, 11b and 11d."""
+    model_ranks = os.path.join(root, "loop_ranks")
+    one = one_process_shard_loop(src, root)
+    one_s, one_cap, one_ms = one["s"], one["cap"], one["ms"]
+    spec = dict(prep, src=src, root=root, loop_model=model_ranks,
+                device=RANK_DEVICE, n_eval=n_eval)
+    results, wall_s = run_ranks(SR_RANKS, "--shard-rank", spec, SR_TIMEOUT,
+                                "11a/11b/11d", "SRRESULT")
+    for r in results:
+        for tr in sharded.TRANSIENTS:
+            check([tuple(x) for x in r["frames"][tr]]
+                  == [tuple(x) for x in prep["frames"][tr]],
+                  f"rank {r['rank']}: the {tr} frames over ranks differ "
+                  f"from the one-process {SR_RANKS}-shard form's")
+    r0 = results[0]
+    iter_ms = hold_loop_ranks(results, one, model_ranks, "11d")
+    print(f"shard ranks, {SR_RANKS} ranks sharing the card over gloo, "
+          f"{W}x{H}: 11a every transient's frames bit for bit the "
+          f"one-process {SR_RANKS}-shard form's, rows per rank "
+          f"{[r['rows'] for r in results]} "
+          f"({[round(r['bytes'] / 1e6, 1) for r in results]} MB), a step's transients at their peak per rank (GB) "
+          f"{[r['transient'] for r in results]} against the one-process "
+          f"form's {prep['local_peak']}; 11b slab and band "
+          f"images bit for bit the local forms'; 11d the loop's gathered "
+          f"state equal to the one-process {SR_RANKS}-shard loop's bit for "
+          f"bit (capacity {one_cap}), rank 0's checkpoint its file, rank 1 "
+          f"wrote nothing; iteration ms median over ranks "
+          f"{np.median(iter_ms):.3f} (one process {np.median(one_ms):.3f}; "
+          f"{SR_LOOP_ITERS} iterations in {r0['loop_s']:.2f} s, one process "
+          f"{one_s:.2f} s), rows at the end "
+          f"{[r['loop_rows'] for r in results]}"
+          f", loop peak GB {[round(r['loop_peak'], 2) for r in results]}; "
+          f"all ranks in {wall_s:.1f} s", flush=True)
+    split = {k: r0["slab_fwd_launches"][k] + r0["slab_fb_launches"][k]
+             + r0["band_fwd_launches"][k] + r0["band_fb_launches"][k]
+             for k in KERNELS}
+    return r0["launches"], split, r0["loop_launches"]
+
+
+def two_d_phase(src, root, backend="gloo"):
+    """11c: TWO_D_RANKS processes of this script as data 2 x prim 2,
+    sharing the card over gloo or (``backend`` nccl) one card each.
+    Returns rank 0's launch counts."""
+    where = "sharing the card" if backend == "gloo" else "one card each"
+    results, wall_s = run_ranks(
+        TWO_D_RANKS, "--two-d-rank", dict(
+            src=src, root=root, backend=backend,
+            device=RANK_DEVICE if backend == "gloo" else "cuda"),
+        SR_TIMEOUT, f"11c over {backend}", "TDRESULT")
+    want = expected_loop_launches(1, 0, sharded_shards=1)
+    for r in results:
+        check(r["launches"] == want, f"rank {r['rank']}'s 2-D step launched "
+              f"{r['launches']}, expected {want}")
+        check(r["coords"] == {"data": r["rank"] // 2, "prim": r["rank"] % 2},
+              f"rank {r['rank']}: coordinates {r['coords']}")
+    check(len({r["loss"] for r in results}) == 1, "the ranks' losses differ")
+    check(results[0]["digest"] == results[2]["digest"]
+          and results[1]["digest"] == results[3]["digest"],
+          "the ranks of a prim coordinate hold different rows")
+    r0 = results[0]
+    print(f"2-D step over {TWO_D_RANKS} ranks (data 2 x prim 2, ring) "
+          f"{where} over {backend}: {r0['rows']} rows a rank, step ms "
+          f"{[round(r['ms'], 1) for r in results]}, worst gradient error "
+          f"{r0['worst']:.3e} of a field's largest against the two-camera "
+          f"step, launches {r0['launches']}; all ranks in {wall_s:.1f} s",
+          flush=True)
+    return r0["launches"]
+
+
+# ``--nccl``: 11d and 11c with one rank per card over NCCL, which moves
+# the ring's messages card to card (the run with no arguments shares one
+# card over gloo, which NCCL refuses). It needs TWO_D_RANKS cards.
+# evaluation renders of the loop on phase 8's scene: its test cameras (every
+# 8th) and 5 training views
+NCCL_N_EVAL = -(-LOOP_CAMS // 8) + 5
+
+
+def nccl_main():
+    """The ring, the densify event's and the growth's messages over NCCL
+    between cards: 11d (the loop on SR_RANKS ranks, a densify event that
+    outgrows the capacity, its rows gathered bit for bit the one-process
+    n_shards=2 loop's) and 11c (the 2-D step on TWO_D_RANKS ranks at phase
+    7's gates). Prints a ``nccl`` JSON line last."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; nothing run")
+    n_cards = torch.cuda.device_count()
+    check(n_cards >= TWO_D_RANKS, f"--nccl needs {TWO_D_RANKS} cards, "
+          f"{n_cards} visible")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip()
+    print(f"device: {smi.splitlines()} | torch {torch.__version__} cuda "
+          f"{torch.version.cuda} nccl {torch.cuda.nccl.version()}",
+          flush=True)
+    t0 = time.perf_counter()
+    build.build(tuple(KERNELS))
+    print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
+    root = os.path.join(REPO, "build", "chip_smoke_nccl")
+    src = write_loop_scene(os.path.join(root, "loop_scene"),
+                           np.random.default_rng(SEED + 8), W, H, LOOP_CAMS)
+    one = one_process_shard_loop(src, root)
+    model_ranks = os.path.join(root, "loop_ranks")
+    spec = dict(src=src, root=root, loop_model=model_ranks, device="cuda",
+                backend="nccl", n_eval=NCCL_N_EVAL, jobs=["loop"])
+    results, wall_s = run_ranks(SR_RANKS, "--shard-rank", spec, SR_TIMEOUT,
+                                "11d over nccl", "SRRESULT")
+    iter_ms = hold_loop_ranks(results, one, model_ranks, "11d over nccl")
+    r0 = results[0]
+    print(f"11d over nccl, {SR_RANKS} ranks one card each, {W}x{H}: the "
+          f"loop's gathered state equal to the one-process {SR_RANKS}-shard "
+          f"loop's bit for bit (capacity {one['cap']}), rank 0's checkpoint "
+          f"its file, rank 1 wrote nothing; iteration ms median "
+          f"{np.median(iter_ms):.3f} (one process {np.median(one['ms']):.3f})"
+          f", densify {[r['densify'] for r in results]}, launches "
+          f"{r0['loop_launches']}; all ranks in {wall_s:.1f} s", flush=True)
+    two_d = two_d_phase(src, root, backend="nccl")
+    print(smi, flush=True)
+    print(json.dumps({"nccl": dict(
+        ok=True, cards=n_cards, loop_iter_ms=float(np.median(iter_ms)),
+        one_process_iter_ms=float(np.median(one["ms"])),
+        loop_launches=r0["loop_launches"], two_d_launches=two_d)}),
+        flush=True)
 
 
 def main():
@@ -2948,6 +3714,7 @@ def main():
         dev, os.path.join(REPO, "build", "chip_smoke"))
 
     # ---- phase 9: evaluation and viewing on run A's model
+    n_eval = run_a.pop("n_eval")      # renders of one evaluation
     eval_launches, view_launches, bridge_launches = view_phase(
         dev, os.path.join(REPO, "build", "chip_smoke"), **run_a)
 
@@ -2955,8 +3722,17 @@ def main():
     torch.cuda.empty_cache()
     dp_nccl_launches = dp_nccl_phase(tg, tcam, tgt, tcfg, train_ms)
     torch.cuda.empty_cache()
-    dp_gloo_launches, dp_2d_launches = dp_gloo_phase(
+    dp_gloo_launches = dp_gloo_phase(
         run_a["src"], os.path.join(REPO, "build", "chip_smoke"))
+
+    # ---- phase 11: one rank per part, the ranks sharing the card
+    torch.cuda.empty_cache()
+    root = os.path.join(REPO, "build", "chip_smoke")
+    prep = shard_ranks_prep(tg, tcam, tgt, tcfg, cams, root)
+    torch.cuda.empty_cache()
+    shard_launches, split_launches, loop_rank_launches = shard_ranks_phase(
+        prep, run_a["src"], root, n_eval=n_eval)
+    dp_2d_launches = two_d_phase(run_a["src"], root)
 
     kernels = []
     for name, k in KERNELS.items():
@@ -2970,7 +3746,10 @@ def main():
                    "loop_bridge": bridge_launches[name],
                    "dp_nccl": dp_nccl_launches[name],
                    "dp_gloo_loop": dp_gloo_launches[name],
-                   "dp_2d": dp_2d_launches[name]}
+                   "dp_2d": dp_2d_launches[name],
+                   "shard_ranks": shard_launches[name],
+                   "split_ranks": split_launches[name],
+                   "loop_ranks": loop_rank_launches[name]}
         check(any(by_path.values()), f"{name} was launched on no path")
         n = numbers[name]
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"):
@@ -2993,5 +3772,11 @@ if __name__ == "__main__":
     import sys
     if sys.argv[1:2] == ["--dp-rank"]:
         dp_rank_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--shard-rank"]:
+        shard_rank_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--two-d-rank"]:
+        two_d_rank_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--nccl"]:
+        nccl_main()
     else:
         main()

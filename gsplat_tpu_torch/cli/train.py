@@ -1,17 +1,23 @@
 """Training CLI: ``python train_torch.py -s <scene> -m <model>``. The flag
 surface of gsplat_tpu/cli/train.py, plus ``--device`` (default ``cuda``)
-and ``--shards N`` (the number of row shards ``--shard_gaussians`` keeps on
-one device, where the JAX package takes the mesh size).
+and ``--shards N`` (the number of row shards ``--shard_gaussians`` keeps in
+one process, where the JAX package takes the mesh size).
 
-Camera data parallelism runs one process per card:
+Several cards run one process per card:
 
     torchrun --nproc_per_node=N train_torch.py -s <scene> -m <model> \
-        --data_parallel [--shard_gaussians --shards K]
+        --data_parallel                      # one camera per rank
+    torchrun --nproc_per_node=N train_torch.py ... --shard_gaussians
+                                             # one row shard per rank
+    torchrun --nproc_per_node=N train_torch.py ... --shard_gaussians \
+        --data_parallel                      # data 2 x prim N/2, N >= 4
 
-Each rank joins the process group first (``parallel/mesh.py``), trains on
-``cuda:LOCAL_RANK``; rank 0 alone writes the model directory and binds the
-viewer bridge, and the other ranks wait for it while its client keeps
-training paused (``train/loop.py``)."""
+Each rank joins the process group first (``parallel/mesh.py``) and trains
+on ``cuda:LOCAL_RANK`` (``--device cpu``: gloo on the CPU); rank 0 alone
+writes the model directory and binds the viewer bridge (not under
+rank-sharded storage), and the other ranks wait for it while its client
+keeps training paused (``train/loop.py``). ``--shards`` is the
+one-process form and raises under torchrun."""
 from __future__ import annotations
 
 import dataclasses
@@ -53,11 +59,13 @@ def main(argv=None):
     parser.add_argument("--shard_gaussians", action="store_true",
                         default=False,
                         help="gaussian-sharded storage training: params, "
-                             "optimizer state and stats in --shards row "
-                             "shards (see SCALING.md)")
+                             "optimizer state and stats in row shards, one "
+                             "per rank under torchrun, else --shards in "
+                             "this process (see SCALING.md)")
     parser.add_argument("--shards", type=int, default=1,
-                        help="row shards of --shard_gaussians, run one after "
-                             "another on the device (1: no sharding)")
+                        help="row shards of --shard_gaussians in one "
+                             "process, run one after another on the device "
+                             "(1: no sharding); raises under torchrun")
     parser.add_argument("--shard_transient", default="replicated",
                         choices=["replicated", "ring", "slab"],
                         help="sharded-storage render-buffer strategy "
@@ -102,7 +110,11 @@ def main(argv=None):
     if args.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)
     server = None
-    if not args.disable_viewer and rank == 0:
+    if args.shard_gaussians and n_ranks > 1 and not args.disable_viewer:
+        if rank == 0:
+            print("viewer bridge disabled: not served under rank-sharded "
+                  "storage")
+    elif not args.disable_viewer and rank == 0:
         from gsplat_tpu_torch.viewer.network_gui import NetworkGUI
         try:
             server = NetworkGUI(args.ip, args.port, device=device)

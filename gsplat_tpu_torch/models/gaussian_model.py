@@ -126,21 +126,25 @@ def create_from_pcd(points: np.ndarray, colors: np.ndarray,
 
 
 def from_numpy(arrays: dict, *, device="cuda",
-               capacity: int | None = None) -> GaussianParams:
+               capacity: int | None = None,
+               rows: slice | None = None) -> GaussianParams:
     """From a dict of numpy arrays keyed by field name: a JAX
     ``GaussianParams`` turned into numpy field by field, or the dict that
     ``scene.ply.load_gaussian_ply`` returns. Without ``active`` every row
     is live; without ``active_sh_degree`` the degree is the maximum.
-    ``capacity`` pads the buffers with dead slots."""
+    ``capacity`` pads the buffers with dead slots; ``rows`` keeps only
+    those rows (a rank's shard of a row-sharded state), and only they go
+    to ``device``."""
     dev = resolve_device(device)
     n = np.asarray(arrays["xyz"]).shape[0]
+    rows = rows or slice(None)
     kw = {}
     for k in TENSOR_FIELDS:
         if k == "active":
             a = np.asarray(arrays.get("active", np.ones(n, bool)), bool)
-            kw[k] = torch.tensor(a, device=dev)
+            kw[k] = torch.tensor(a[rows], device=dev)
         else:
-            kw[k] = torch.tensor(np.asarray(arrays[k], np.float32),
+            kw[k] = torch.tensor(np.asarray(arrays[k], np.float32)[rows],
                                  device=dev)
     max_deg = int(round((kw["f_rest"].shape[1] + 1) ** 0.5)) - 1
     deg = int(arrays.get("active_sh_degree", max_deg))

@@ -10,13 +10,14 @@ One process per card, the same program on every rank, started by
 
 :func:`init_distributed` joins the process group; :func:`make_mesh` lays
 the world's ranks out on named axes. The ``data`` axis (camera data
-parallelism, ``parallel/dp.py``) runs over ranks. The gaussian-sharded
-storage and the slab and band renders keep their parts as a local list on
-each rank (``parallel/sharded.py``, ``prim_shard.py``, ``tile_shard.py``),
-so a mesh of the port has no ``prim`` or ``tile`` axis over ranks yet. As
-in JAX the outer axis runs across hosts and the innermost within a host:
+parallelism, ``parallel/dp.py``) and the ``prim`` and ``tile`` axes (the
+row shards of gaussian-sharded storage, the depth slabs and the tile bands:
+``parallel/sharded.py``, ``prim_shard.py``, ``tile_shard.py`` with
+``RankParts(mesh, axis)``) all run over ranks, one part per rank. As in
+JAX the outer axis runs across hosts and the innermost within a host:
 ``torchrun`` numbers a host's ranks consecutively, and the innermost axis
-varies fastest over the rank number.
+varies fastest over the rank number. JAX's 2-D loop lays out ``data`` 2 x
+``prim`` world // 2 (``train/loop.py``).
 
 Host-side control flow must agree on every rank: the loop's camera picks
 come from Python's ``random`` seeded alike on every rank, its random draws
@@ -101,16 +102,19 @@ def mesh_layout(axes: Sequence[tuple], n_ranks: int
 
 class Mesh:
     """The world's ranks on named axes, seen from one rank: ``shape[name]``,
-    this rank's coordinate on each axis (``coords[name]``) and the process
+    this rank's coordinate on each axis (``coords[name]``), the process
     group of the line of ranks it shares along each axis (``groups[name]``;
     None for the default group, and outside a process group, where the
-    mesh is one rank and a collective has nothing to combine)."""
+    mesh is one rank and a collective has nothing to combine) and that
+    line's global rank numbers in axis order (``lines[name]``: the peers of
+    point-to-point messages along the axis)."""
 
-    def __init__(self, names, sizes, rank, groups):
+    def __init__(self, names, sizes, rank, groups, lines=None):
         self.shape: Dict[str, int] = dict(zip(names, sizes))
         self.coords: Dict[str, int] = dict(zip(
             names, (int(c) for c in np.unravel_index(rank, sizes))))
         self.groups = groups
+        self.lines: Dict[str, List[int]] = lines or {}
 
 
 def make_mesh(axes: Sequence[tuple] = (("data", -1),)) -> Mesh:
@@ -120,7 +124,7 @@ def make_mesh(axes: Sequence[tuple] = (("data", -1),)) -> Mesh:
     default group."""
     rank, n_ranks = world()
     names, sizes, grid = mesh_layout(axes, n_ranks)
-    groups = {}
+    groups, own = {}, {}
     for i, name in enumerate(names):
         lines = np.moveaxis(grid, i, -1).reshape(-1, sizes[i])
         for line in lines:
@@ -129,7 +133,8 @@ def make_mesh(axes: Sequence[tuple] = (("data", -1),)) -> Mesh:
                 group = dist.new_group([int(r) for r in line])
             if rank in line:
                 groups[name] = group
-    return Mesh(names, sizes, rank, groups)
+                own[name] = [int(r) for r in line]
+    return Mesh(names, sizes, rank, groups, own)
 
 
 class Hold:

@@ -15,11 +15,19 @@ csrc/slab_tmit.cu on the card), the exclusive product over nearer slabs is
 the transmittance each pixel arrives with, and the real pass hands it to
 the compositor's stop test as ``t_init``.
 
-The slabs run one after another on the device the gaussians lie on; where
-the JAX package all-gathers over the mesh axis, ``gather_parts`` stacks the
-local list. Autograd sums the slabs' cotangents into the one packed table,
-as ``shard_map``'s transpose does there. The JAX package's ``row_cull``
-branch is not ported: the port's config has no ``row_cull``.
+The slabs are the parts of ``gsplat_tpu_torch.parallel``: an int K runs
+them one after another on the device the gaussians lie on
+(``LocalParts``); a ``RankParts(mesh, "prim")`` runs one slab per rank,
+every rank preprocessing the whole (replicated) set, as JAX's mesh does.
+The slabs' segments are all-gathered and merged alike on every part; the
+gather's backward hands each part its own segment's cotangent, and the
+packed table, which every part computes alike and differentiates with its
+own slab's cotangent, sums the parts' gradients once (``sum_grad``; locally
+autograd's accumulation over the K slabs is that sum): JAX's
+``shard_map`` transpose of the replicated input. One sum, not two: the JAX
+package's note on this render records that an extra ``_psum_grad`` doubled
+the gradient. The JAX package's ``row_cull`` branch is not ported: the
+port's config has no ``row_cull``.
 """
 from __future__ import annotations
 
@@ -36,7 +44,7 @@ from gsplat_tpu_torch.ops import preprocess as preprocess_lib
 from gsplat_tpu_torch.ops.kernels.composite import slab_transmittance
 from gsplat_tpu_torch.ops.rasterize import (Entries, _tiles_to_image,
                                             composite_dispatch, pack_entries)
-from gsplat_tpu_torch.parallel import gather_parts
+from gsplat_tpu_torch.parallel import as_parts
 
 _BIG = 3.0e38
 
@@ -68,16 +76,19 @@ def _exclusive_cumprod(t: torch.Tensor) -> torch.Tensor:
 
 def build_slab_entries(gaussians: GaussianParams, cam: CameraView,
                        image_width: int, image_height: int,
-                       cfg: RasterizerConfig, *, n_slabs: int,
+                       cfg: RasterizerConfig, *, n_slabs,
                        antialiasing: bool = False,
                        m_cap: Optional[int] = None) -> List[Entries]:
-    """Preprocess once, then bin and gather each depth slab by itself: one
-    ``Entries`` per slab, near to far, each over the full tile grid at the
-    per-slab capacity ``m_cap`` (default: the frame's over n_slabs)."""
+    """Preprocess once, then bin and gather each depth slab this process
+    holds by itself: one ``Entries`` per slab of ``n_slabs`` (an int K: all
+    K, near to far; a ``RankParts``: this rank's one), each over the full
+    tile grid at the per-slab capacity ``m_cap`` (default: the frame's over
+    K)."""
+    parts = as_parts(n_slabs)
     W, H = image_width, image_height
     cap = gaussians.capacity
     if m_cap is None:
-        m_cap = int(cap * cfg.pairs_per_gaussian / n_slabs)
+        m_cap = int(cap * cfg.pairs_per_gaussian / parts.n)
     m_cap = -(-m_cap // cfg.chunk) * cfg.chunk
 
     pre = preprocess_lib.preprocess(
@@ -88,12 +99,12 @@ def build_slab_entries(gaussians: GaussianParams, cam: CameraView,
         dilation=cfg.dilation, alpha_min=cfg.alpha_min)
     mean2d, depth = pre.mean2d.detach(), pre.depth.detach()
     radius, rx, ry = pre.radius.detach(), pre.rx.detach(), pre.ry.detach()
-    bounds = _slab_bounds(depth, radius > 0, n_slabs)
-    packed = pack_entries(pre)                                   # (N+1,16)
+    bounds = _slab_bounds(depth, radius > 0, parts.n)
+    packed = parts.sum_grad(pack_entries(pre))                   # (N+1,16)
     zero = torch.zeros_like(radius)
 
     slabs = []
-    for k in range(n_slabs):
+    for k in parts.mine:
         # half-open [lo, hi); the last slab is closed by the +big bound
         in_slab = (depth >= bounds[k]) & (depth < bounds[k + 1])
         b = binning_lib.bin_gaussians(
@@ -111,18 +122,23 @@ def build_slab_entries(gaussians: GaussianParams, cam: CameraView,
     return slabs
 
 
-def arriving_transmittance(slabs: List[Entries],
-                           cfg: RasterizerConfig) -> torch.Tensor:
+def arriving_transmittance(slabs: List[Entries], cfg: RasterizerConfig,
+                           parts=None) -> torch.Tensor:
     """(K,T,P): the transmittance each pixel arrives with at each slab, the
     exclusive product over nearer slabs of their cut-free transmittance
     Π(1−α) (pass 1 of the exact cut), all ones at slab 0. No gradient.
+    ``slabs`` are the slabs this process holds (``parts``, default: all of
+    them locally).
 
     No slab lies behind the farthest, so its own transmittance is in no
-    product and is not computed: K−1 launches of ``slab_transmittance``, none
-    for K = 1. The JAX package computes it all the same, each device its own
-    slab's under ``shard_map``, where the farthest device's pass runs beside
-    the others' and costs no time; here the slabs run one after another on
-    one device, and that pass would be pure cost."""
+    product and is not computed: K−1 launches of ``slab_transmittance``
+    locally, none for K = 1; on ranks every rank but the last runs its own,
+    and the K−1 results are gathered (one broadcast from each). The JAX
+    package computes it all the same, each device its own slab's under
+    ``shard_map``, where the farthest device's pass runs beside the others'
+    and costs no time; here it would be pure cost on one device, and on
+    ranks a message nobody reads."""
+    parts = as_parts(len(slabs) if parts is None else parts)
     e0 = slabs[0]
     ones = torch.ones(
         (1, e0.n_tiles_x * e0.n_tiles_y, cfg.tile_h * cfg.tile_w),
@@ -132,18 +148,21 @@ def arriving_transmittance(slabs: List[Entries],
             e.entries.detach(), e.binning.tile_start, e.binning.tile_count,
             n_tiles_x=e.n_tiles_x, n_tiles_y=e.n_tiles_y, tile_h=cfg.tile_h,
             tile_w=cfg.tile_w, chunk=cfg.chunk, alpha_min=cfg.alpha_min,
-            alpha_max=cfg.alpha_max)[None]
-        for e in slabs[:-1]]
+            alpha_max=cfg.alpha_max)[None] if k < parts.n - 1 else None
+        for k, e in zip(parts.mine, slabs)]
+    t_nocut = parts.gather_first(t_nocut, parts.n - 1, like=ones)
     return torch.cumprod(torch.cat([ones] + t_nocut), dim=0)
 
 
 def render_prim_sharded(gaussians: GaussianParams, cam: CameraView,
                         image_width: int, image_height: int,
                         bg_color: torch.Tensor, cfg: RasterizerConfig, *,
-                        n_slabs: int, antialiasing: bool = False,
+                        n_slabs, antialiasing: bool = False,
                         m_cap: Optional[int] = None,
                         exact_cut: bool = True):
-    """Render with the gaussians split into ``n_slabs`` depth slabs.
+    """Render with the gaussians split into ``n_slabs`` depth slabs (an int
+    K: all K in this process; a ``RankParts``: one per rank, every rank
+    holding the whole set and returning the whole frame).
 
     Returns (image (3,H,W) clamped, invdepth (1,H,W), overflow ()).
     ``overflow`` is the largest number of pairs any slab dropped: slabs can
@@ -158,27 +177,28 @@ def render_prim_sharded(gaussians: GaussianParams, cam: CameraView,
     which differs by up to ~1e-2 on nearly saturated pixels. The merge is
     exact either way.
     """
+    parts = as_parts(n_slabs)
     W, H = image_width, image_height
     th, tw = cfg.tile_h, cfg.tile_w
-    slabs = build_slab_entries(gaussians, cam, W, H, cfg, n_slabs=n_slabs,
+    slabs = build_slab_entries(gaussians, cam, W, H, cfg, n_slabs=parts,
                                antialiasing=antialiasing, m_cap=m_cap)
     n_tiles_x, n_tiles_y = slabs[0].n_tiles_x, slabs[0].n_tiles_y
     # pass 1: what each pixel arrives with; pass 2: the real composite, its
     # stop test scaled by it
-    t_arrive = (arriving_transmittance(slabs, cfg) if exact_cut
-                else [None] * n_slabs)
+    t_arrive = (arriving_transmittance(slabs, cfg, parts) if exact_cut
+                else [None] * parts.n)
     outs = [composite_dispatch(e.entries, e.binning.tile_start,
                                e.binning.tile_count, cfg,
                                n_tiles_x=n_tiles_x, n_tiles_y=n_tiles_y,
                                t_init=t_arrive[k])
-            for k, e in enumerate(slabs)]
+            for k, e in zip(parts.mine, slabs)]
     # ordered segment merge, near to far
-    seg_a = gather_parts([o.accum for o in outs])                # (K,T,4,P)
-    seg_t = gather_parts([o.t_final for o in outs])              # (K,T,P)
+    seg_a = parts.gather([o.accum for o in outs])                # (K,T,4,P)
+    seg_t = parts.gather([o.t_final for o in outs])              # (K,T,P)
     t_excl = _exclusive_cumprod(seg_t)
     accum = torch.sum(seg_a * t_excl[:, :, None, :], dim=0)      # (T,4,P)
     t_final = t_excl[-1] * seg_t[-1]                             # (T,P)
-    overflow = gather_parts([e.binning.overflow for e in slabs]).amax()
+    overflow = parts.pmax_value([e.binning.overflow for e in slabs])
 
     accum_img = _tiles_to_image(accum, n_tiles_y, n_tiles_x, th, tw, H, W)
     t_img = _tiles_to_image(t_final[:, None, :], n_tiles_y, n_tiles_x, th,

@@ -31,15 +31,20 @@ Counterpart of gsplat_tpu/parallel/sharded.py (``make_sharded_render``,
   scatter would not. The D partial gradients of a shard travel to their
   owners; the owners' sums are the reduce-scatter.
 
-The D shards run one after another on the device the gaussians lie on,
-each with the arithmetic of one chip of the JAX mesh. Where the mesh runs a
-collective stands a helper of ``gsplat_tpu_torch.parallel``:
-``gather_parts`` (all-gather), ``ring_arrival`` (the slab a shard holds at
-ring step s) and ``reduce_scatter_parts`` (the partial gradients sent to
-their owners, which autograd sums over the shards). The camera
-data-parallel form (``make_sharded_dp_train_step``) runs the data axis over
-the ranks of a process group, each rank holding the D shards of the whole
-state. Not ported: the ``row_cull`` branches (the port's config has no
+The shards are the parts of ``gsplat_tpu_torch.parallel``: ``LocalParts(D)``
+(an int D) runs them one after another on the device the gaussians lie
+on, with the whole state in one process; ``RankParts(mesh, "prim")`` runs
+one shard per rank, each holding ONLY its CAP/D rows of every per-gaussian
+tensor (``shard_state``), as JAX's mesh does. Where the mesh runs a
+collective stands the parts' helper: ``gather`` (all-gather; the bands
+hand each part its slice of the cotangent, the ``replicated`` packed table
+sums the parts' cotangents to their owners), ``ring`` (the slab a shard
+holds at ring step s) and ``reduce_scatter`` (the partial gradients sent to
+their owners). ``num_pairs`` is summed over the parts, ``overflow`` and
+``num_padded`` take their largest, as JAX's ``psum`` / ``pmax``. The 2-D
+step (``make_sharded_dp_train_step``) lays out JAX's ``data`` x ``prim``
+mesh of ranks and reduces each shard's gradients over its ``data`` line.
+Not ported: the ``row_cull`` branches (the port's config has no
 ``row_cull``).
 """
 from __future__ import annotations
@@ -61,8 +66,7 @@ from gsplat_tpu_torch.ops.rasterize import (_prefix_between, _tiles_to_image,
                                             masked_presort_prefix,
                                             masked_presort_prefix_slabs,
                                             pack_rows)
-from gsplat_tpu_torch.parallel import (dp, gather_parts,
-                                       reduce_scatter_parts, ring_arrival)
+from gsplat_tpu_torch.parallel import RankParts, as_parts, dp
 from gsplat_tpu_torch.train import densify as densify_lib
 from gsplat_tpu_torch.train import trainer
 from gsplat_tpu_torch.utils.general import full_f32_matmul
@@ -75,27 +79,37 @@ def shard_rows(x: torch.Tensor, n_shards: int) -> List[torch.Tensor]:
     return list(torch.chunk(x, n_shards, dim=0))
 
 
-def shard_state(state: "trainer.TrainState", n_shards: int
+def shard_state(state: "trainer.TrainState", parts
                 ) -> "trainer.TrainState":
-    """Check that a TrainState splits into ``n_shards`` row shards (the
-    capacity must divide evenly). On one device the shards are the row
-    ranges of the whole tensors, so the state itself is returned; exposure,
-    schedules and scalars belong to every shard."""
+    """A TrainState split into the row shards of ``parts`` (an int D: D
+    local shards). The capacity must divide evenly. Local shards are the
+    row ranges of the whole tensors, so the state itself is returned; on
+    ranks each keeps its own CAP/D rows of every per-gaussian tensor
+    (parameters, Adam moments, densification statistics) and drops the
+    rest. Exposure, schedules and scalars belong to every shard."""
+    parts = as_parts(parts)
     cap = state.gaussians.capacity
-    if cap % n_shards:
-        raise ValueError(f"capacity {cap} not divisible by {n_shards} shards")
-    return state
+    if cap % parts.n:
+        raise ValueError(f"capacity {cap} not divisible by {parts.n} shards")
+    if not parts.ranked:
+        return state
+    rows = own_rows(parts, cap)
+    return trainer.map_rows(state, lambda x: x[rows].clone())
 
 
-def _ring_gather(slabs, idx: torch.Tensor, k: int) -> torch.Tensor:
+def own_rows(parts, cap_total: int) -> slice:
+    """The rows of the global state that this rank's shard holds."""
+    rows = cap_total // parts.n
+    return slice(parts.k * rows, (parts.k + 1) * rows)
+
+
+def _ring_gather(parts, held, idx: torch.Tensor, k: int) -> torch.Tensor:
     """entries[e] = packed_global[idx[e]] for shard k, from the D owners'
     (N/D,16) slabs as they arrive around the ring; ids outside every slab
     (the sentinel) give the zero row."""
-    rows = slabs[0].shape[0]
-    ent = slabs[0].new_zeros((idx.shape[0], slabs[0].shape[1]))
-    for s in range(len(slabs)):
-        owner = (k - s) % len(slabs)
-        slab = ring_arrival(slabs, k, s)
+    rows = held[0].shape[0]
+    ent = held[0].new_zeros((idx.shape[0], held[0].shape[1]))
+    for owner, slab in parts.ring(held, k):
         rel = idx - owner * rows
         inb = (rel >= 0) & (rel < rows)
         ent = ent + torch.where(
@@ -109,16 +123,19 @@ class _RingGatherEntries(torch.autograd.Function):
     idx (m_out,): global STORAGE row of every aligned entry (the binning's
     depth permutation composed in); rank_inv (N,): storage row -> depth
     position; inv_src, g_offsets, g_counts: the binning's presort tables,
-    in depth order. The D slabs are D inputs, and the backward returns D
-    partial gradients, one per owner."""
+    in depth order. The slabs this process holds are the inputs (all D
+    locally, this rank's one on a rank), and the backward returns their
+    gradients: locally the D partials, one per owner (autograd sums them
+    over the D shards' calls); on a rank the sum that arrives around the
+    reverse ring."""
 
     @staticmethod
-    def forward(ctx, idx, inv_src, g_offsets, g_counts, rank_inv, k, m_cap,
-                *slabs):
+    def forward(ctx, idx, inv_src, g_offsets, g_counts, rank_inv, k, parts,
+                m_cap, *held):
         ctx.save_for_backward(inv_src, g_offsets, g_counts, rank_inv)
-        ctx.k, ctx.m_cap, ctx.n = k, m_cap, len(slabs)
-        ctx.rows = slabs[0].shape[0]
-        return _ring_gather(slabs, idx, k)
+        ctx.k, ctx.parts, ctx.m_cap = k, parts, m_cap
+        ctx.rows = held[0].shape[0]
+        return _ring_gather(parts, held, idx, k)
 
     @staticmethod
     def backward(ctx, d_aligned):
@@ -135,8 +152,8 @@ class _RingGatherEntries(torch.autograd.Function):
             return _prefix_between(intra, block_pre, L, bnd[dpos],
                                    bnd[dpos + 1])            # (rows, 16)
 
-        return (None,) * 7 + tuple(
-            reduce_scatter_parts(partial_for, ctx.k, ctx.n))
+        return (None,) * 8 + tuple(ctx.parts.reduce_scatter(partial_for,
+                                                             ctx.k))
 
 
 class _RingGatherEntriesSlab(torch.autograd.Function):
@@ -149,16 +166,16 @@ class _RingGatherEntriesSlab(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, idx, inv_src, g_offsets, g_counts, slab_totals, k,
-                m_slab, *slabs):
+                parts, m_slab, *held):
         ctx.save_for_backward(inv_src, g_offsets, g_counts, slab_totals)
-        ctx.k, ctx.m_slab, ctx.n = k, m_slab, len(slabs)
-        ctx.rows = slabs[0].shape[0]
-        return _ring_gather(slabs, idx, k)
+        ctx.k, ctx.parts, ctx.m_slab = k, parts, m_slab
+        ctx.rows = held[0].shape[0]
+        return _ring_gather(parts, held, idx, k)
 
     @staticmethod
     def backward(ctx, d_aligned):
         inv_src, g_offsets, g_counts, slab_totals = ctx.saved_tensors
-        n, rows = ctx.n, ctx.rows
+        n, rows = ctx.parts.n, ctx.rows
         m_cap = n * ctx.m_slab
         intra, block_pre, L = masked_presort_prefix_slabs(
             d_aligned, inv_src, slab_totals, ctx.m_slab, m_cap)
@@ -171,18 +188,19 @@ class _RingGatherEntriesSlab(torch.autograd.Function):
                 intra, block_pre, L, torch.clamp(start, 0, m_cap),
                 torch.clamp(start + cnt, 0, m_cap))          # (rows, 16)
 
-        return (None,) * 7 + tuple(
-            reduce_scatter_parts(partial_for, ctx.k, n))
+        return (None,) * 8 + tuple(ctx.parts.reduce_scatter(partial_for,
+                                                             ctx.k))
 
 
-def _render_shard_slab(k: int, packed, geom, *, W: int, rows_loc: int,
-                       cfg: RasterizerConfig, m_cap_loc: int):
+def _render_shard_slab(k: int, parts, packed, geom, *, W: int,
+                       rows_loc: int, cfg: RasterizerConfig, m_cap_loc: int):
     """Shard k's entries with BOTH streams (transient="slab"): each owner's
     geometry slab, as it arrives around the ring, is expanded into (tile,
     depth bits) entries at m_cap_loc/D; one merged sort reproduces the
     global order, and the packed rows stream through a second ring
     (``_RingGatherEntriesSlab``). Per-slab capacities overflow
-    independently (reported in the binning's ``overflow``).
+    independently (reported in the binning's ``overflow``). ``packed`` and
+    ``geom`` are the slabs this process holds.
 
     An arriving slab is placed at its OWNER's slot of the concatenated
     presort layout, not at its arrival step's: the merged sort keeps
@@ -191,7 +209,7 @@ def _render_shard_slab(k: int, packed, geom, *, W: int, rows_loc: int,
     single render's stable depth sort gives them (the JAX package places by
     arrival, and its bands order such ties each their own way)."""
     th, tw = cfg.tile_h, cfg.tile_w
-    n_dev = len(packed)
+    n_dev = parts.n
     rows = packed[0].shape[0]
     cap_total = n_dev * rows
     m_slab = max(-(-(m_cap_loc // n_dev) // cfg.chunk) * cfg.chunk, cfg.chunk)
@@ -199,9 +217,7 @@ def _render_shard_slab(k: int, packed, geom, *, W: int, rows_loc: int,
               tile_w=tw)
 
     slabs = [None] * n_dev
-    for s in range(n_dev):
-        owner = (k - s) % n_dev
-        g = ring_arrival(geom, k, s)
+    for owner, g in parts.ring(geom, k):
         slabs[owner] = binning_lib.expand_slab(
             g[:, :2], g[:, 2], g[:, 3], g[:, 4], g[:, 5],
             row_base=owner * rows, slab_base_entry=owner * m_slab,
@@ -213,11 +229,11 @@ def _render_shard_slab(k: int, packed, geom, *, W: int, rows_loc: int,
                                for sl in slabs])
     entries = _RingGatherEntriesSlab.apply(
         b.gidx_sorted, b.inv_src, b.g_offsets, b.g_counts, slab_totals, k,
-        m_slab, *packed)
+        parts, m_slab, *packed)
     return b, entries
 
 
-def _render_shard(k: int, packed, geom_all: torch.Tensor,
+def _render_shard(k: int, parts, packed, geom_all: torch.Tensor,
                   packed_ext: Optional[torch.Tensor], *, W: int,
                   rows_loc: int, cfg: RasterizerConfig, m_cap_loc: int):
     """Shard k's entries from the gathered (N,6) geometry: the standard
@@ -243,51 +259,52 @@ def _render_shard(k: int, packed, geom_all: torch.Tensor,
     rank_inv[b.perm] = torch.arange(cap_total, device=b.perm.device)
     idx = perm_ext[b.gidx_sorted]
     entries = _RingGatherEntries.apply(
-        idx, b.inv_src, b.g_offsets, b.g_counts, rank_inv, k, m_cap_loc,
-        *packed)
+        idx, b.inv_src, b.g_offsets, b.g_counts, rank_inv, k, parts,
+        m_cap_loc, *packed)
     return b, entries
 
 
 class _Bands(NamedTuple):
     full: torch.Tensor        # (5, H, W): rgb and invdepth accum, t_final
-    radii: torch.Tensor       # (CAP,)
+    radii: torch.Tensor       # (rows held,): the shards' of this process
     num_pairs: torch.Tensor   # () summed over the shards
     overflow: torch.Tensor    # () the largest of any shard
     num_padded: torch.Tensor  # () the largest of any shard
 
 
-def _render_bands(shards: List[Dict[str, torch.Tensor]],
+def _render_bands(parts, shards: List[Dict[str, torch.Tensor]],
                   active: List[torch.Tensor], sh_degree: int,
                   taps: Optional[List[torch.Tensor]], cam: CameraView, *,
                   W: int, H: int, cfg: RasterizerConfig, m_cap_loc: int,
                   antialiasing: bool, transient: str,
                   scaling_modifier: float = 1.0) -> _Bands:
-    """Every shard's part of one frame: preprocess of its own rows, the
-    gathers of the ``transient``, binning and compositing of its band of
-    tile rows; then the bands gathered into the frame."""
+    """The shards' part of one frame that this process holds (lists
+    aligned with ``parts.mine``): preprocess of their own rows, the gathers
+    of the ``transient``, binning and compositing of their bands of tile
+    rows; then the bands gathered into the frame on every part."""
     if transient not in TRANSIENTS:
         raise ValueError(f"transient must be one of {TRANSIENTS}, got "
                          f"{transient!r}")
-    n_dev = len(shards)
+    n_dev = parts.n
     th, tw = cfg.tile_h, cfg.tile_w
     n_tiles_x = -(-W // tw)
     n_tiles_y = -(-H // th)
     rows_loc = -(-n_tiles_y // n_dev)       # the grid padded to D x rows_loc
 
     pres, packed, geom = [], [], []
-    for o in range(n_dev):
+    for i in range(len(parts.mine)):
         g_loc = gm.GaussianParams(active_sh_degree=sh_degree,
-                                  active=active[o], **shards[o])
+                                  active=active[i], **shards[i])
         pre = preprocess_lib.preprocess(
             g_loc.xyz, g_loc.get_scaling(), g_loc.get_rotation(),
             g_loc.get_opacity(), g_loc.get_features(), sh_degree, cam, W, H,
-            active_mask=active[o], scaling_modifier=scaling_modifier,
+            active_mask=active[i], scaling_modifier=scaling_modifier,
             antialiasing=antialiasing, dilation=cfg.dilation,
             alpha_min=cfg.alpha_min)
         if taps is not None:
             scale = torch.tensor([[0.5 * W, 0.5 * H]], dtype=torch.float32,
-                                 device=taps[o].device)
-            pre = pre._replace(mean2d=pre.mean2d + taps[o] * scale)
+                                 device=taps[i].device)
+            pre = pre._replace(mean2d=pre.mean2d + taps[i] * scale)
         pres.append(pre)
         packed.append(pack_rows(pre))                        # (cap/D, 16)
         geom.append(torch.stack(
@@ -297,17 +314,20 @@ def _render_bands(shards: List[Dict[str, torch.Tensor]],
     kw = dict(W=W, rows_loc=rows_loc, cfg=cfg, m_cap_loc=m_cap_loc)
     geom_all = packed_ext = None
     if transient != "slab":
-        geom_all = gather_parts(geom).reshape(-1, 6)         # (N, 6)
+        geom_all = parts.gather(geom).reshape(-1, 6)         # (N, 6)
     if transient == "replicated":
-        packed_all = gather_parts(packed).reshape(-1, 16)    # (N, 16)
+        # each band consumes the table its own way: the backward sums the
+        # parts' cotangents and hands each owner its rows (psum_scatter)
+        packed_all = parts.gather(packed, grad="sum").reshape(-1, 16)
         packed_ext = torch.cat([packed_all, packed_all.new_zeros((1, 16))])
 
     bands, pairs, overflow, padded = [], [], [], []
-    for k in range(n_dev):
+    for k in parts.mine:
         if transient == "slab":
-            b, entries = _render_shard_slab(k, packed, geom, **kw)
+            b, entries = _render_shard_slab(k, parts, packed, geom, **kw)
         else:
-            b, entries = _render_shard(k, packed, geom_all, packed_ext, **kw)
+            b, entries = _render_shard(k, parts, packed, geom_all,
+                                       packed_ext, **kw)
         # the entries carry GLOBAL means: the band's first tile id puts the
         # compositor's pixels where the frame has them
         out = composite_dispatch(
@@ -320,13 +340,15 @@ def _render_bands(shards: List[Dict[str, torch.Tensor]],
         overflow.append(b.overflow)
         padded.append(b.num_padded)
 
-    full = gather_parts(bands)                               # (D,5,h_loc,W)
+    # every part computes the loss of the whole frame alike: the backward
+    # of this gather hands each part its own band's cotangent
+    full = parts.gather(bands, grad="slice")                 # (D,5,h_loc,W)
     full = full.permute(1, 0, 2, 3).reshape(5, n_dev * rows_loc * th, W)
     return _Bands(full=full[:, :H, :],
-                  radii=gather_parts([p.radius for p in pres]).reshape(-1),
-                  num_pairs=gather_parts(pairs).sum(),
-                  overflow=gather_parts(overflow).amax(),
-                  num_padded=gather_parts(padded).amax())
+                  radii=parts.join([p.radius for p in pres]),
+                  num_pairs=parts.psum_value(pairs),
+                  overflow=parts.pmax_value(overflow),
+                  num_padded=parts.pmax_value(padded))
 
 
 def shard_capacity(capacity: int, cfg: RasterizerConfig, n_shards: int,
@@ -341,35 +363,40 @@ def shard_capacity(capacity: int, cfg: RasterizerConfig, n_shards: int,
 class ShardedRenderOut(NamedTuple):
     image: torch.Tensor       # (3,H,W)
     invdepth: torch.Tensor    # (1,H,W)
-    radii: torch.Tensor       # (CAP,), shard k's rows at [k·CAP/D, ...)
+    radii: torch.Tensor       # (rows held,): shard k's at [k·CAP/D, ...)
     num_pairs: torch.Tensor   # () total over the shards
     overflow: torch.Tensor    # () the largest of any shard
 
 
-def make_sharded_render(n_shards: int, *, image_width: int,
-                        image_height: int, cfg: RasterizerConfig,
-                        antialiasing: bool = False,
+def _check_divides(parts, cap: int):
+    if not parts.ranked and cap % parts.n:
+        raise ValueError(f"capacity {cap} not divisible by {parts.n} shards")
+
+
+def make_sharded_render(n_shards, *, image_width: int, image_height: int,
+                        cfg: RasterizerConfig, antialiasing: bool = False,
                         m_cap_total: Optional[int] = None,
                         transient: str = "replicated"):
     """Build fn(gaussians, cam, bg) -> ShardedRenderOut, on the device the
-    gaussians lie on. The capacity must divide by ``n_shards``. A frame
-    with ``overflow > 0`` is garbage by the binning contract: grow
-    ``m_cap_total`` and render again."""
+    gaussians lie on. ``n_shards``: an int D (D local shards of the whole
+    state, whose capacity must divide by D) or a ``RankParts`` (the
+    gaussians are this rank's rows). A frame with ``overflow > 0`` is
+    garbage by the binning contract: grow ``m_cap_total`` and render
+    again."""
+    parts = as_parts(n_shards)
     W, H = image_width, image_height
 
     def fn(gaussians: gm.GaussianParams, cam: CameraView,
            bg: torch.Tensor) -> ShardedRenderOut:
-        cap = gaussians.capacity
-        if cap % n_shards:
-            raise ValueError(f"capacity {cap} not divisible by {n_shards} "
-                             f"shards")
-        t = {k: shard_rows(v, n_shards)
-             for k, v in gm.trainables(gaussians).items()}
+        _check_divides(parts, gaussians.capacity)
+        cap = parts.total_rows(gaussians.capacity)
+        t = {k: parts.split(v) for k, v in gm.trainables(gaussians).items()}
         out = _render_bands(
-            [{k: v[o] for k, v in t.items()} for o in range(n_shards)],
-            shard_rows(gaussians.active, n_shards),
-            gaussians.active_sh_degree, None, cam, W=W, H=H, cfg=cfg,
-            m_cap_loc=shard_capacity(cap, cfg, n_shards, m_cap_total),
+            parts, [{k: v[i] for k, v in t.items()}
+                    for i in range(len(parts.mine))],
+            parts.split(gaussians.active), gaussians.active_sh_degree, None,
+            cam, W=W, H=H, cfg=cfg,
+            m_cap_loc=shard_capacity(cap, cfg, parts.n, m_cap_total),
             antialiasing=antialiasing, transient=transient)
         image = torch.clamp(
             out.full[:3] + out.full[4:5] * bg[:, None, None], 0.0, 1.0)
@@ -382,35 +409,40 @@ def make_sharded_render(n_shards: int, *, image_width: int,
 
 def sharded_loss_grads(g: gm.GaussianParams, exposure_all: torch.Tensor,
                        cam: CameraView, gt_image, alpha_mask, invdepth_gt,
-                       depth_mask, bg, step: int, *, n_shards: int,
+                       depth_mask, bg, step: int, *, n_shards,
                        image_width: int, image_height: int,
                        opt: OptimizationConfig, rcfg: RasterizerConfig,
                        antialiasing: bool, train_test_exp: bool,
                        use_depth: bool, transient: str):
     """Loss and gradients for one camera through the sharded render: every
     shard's parameters and screen-space tap are leaves of their own, so
-    each owner receives the gradient of exactly its rows. Returns (loss,
-    l1, depth_l1, _Bands, grads by trainable field (CAP rows, the shards'
-    in order), exposure grads, tap grad (CAP,2))."""
+    each owner receives the gradient of exactly its rows. ``n_shards``: an
+    int D or a ``RankParts``, as for ``make_sharded_render``. Every part
+    computes the loss of the whole frame alike, and so the exposure
+    gradients. Returns (loss, l1, depth_l1, _Bands, grads by trainable
+    field (the rows this process holds, its shards' in order), exposure
+    grads, tap grad (rows, 2))."""
     full_f32_matmul()      # the exposure product is held to JAX's HIGHEST
+    parts = as_parts(n_shards)
     W, H = image_width, image_height
-    cap = g.capacity
-    if cap % n_shards:
-        raise ValueError(f"capacity {cap} not divisible by {n_shards} shards")
+    _check_divides(parts, g.capacity)
+    cap = parts.total_rows(g.capacity)
+    rows = cap // parts.n
+    mine = len(parts.mine)
     depth_w = expon_lr(step, opt.depth_l1_weight_init,
                        opt.depth_l1_weight_final, max_steps=opt.iterations)
     fields = gm.TRAINABLE_FIELDS
     params = [{k: v.detach().requires_grad_() for k, v in zip(
-        fields, vs)} for vs in zip(*(shard_rows(getattr(g, k), n_shards)
+        fields, vs)} for vs in zip(*(parts.split(getattr(g, k))
                                      for k in fields))]
-    taps = [torch.zeros((cap // n_shards, 2), device=g.device,
-                        requires_grad=True) for _ in range(n_shards)]
+    taps = [torch.zeros((rows, 2), device=g.device, requires_grad=True)
+            for _ in range(mine)]
     exposure_all = exposure_all.detach().requires_grad_()
 
     out = _render_bands(
-        params, shard_rows(g.active, n_shards), g.active_sh_degree, taps,
+        parts, params, parts.split(g.active), g.active_sh_degree, taps,
         cam, W=W, H=H, cfg=rcfg,
-        m_cap_loc=shard_capacity(cap, rcfg, n_shards),
+        m_cap_loc=shard_capacity(cap, rcfg, parts.n),
         antialiasing=antialiasing, transient=transient)
     image = out.full[:3] + out.full[4:5] * bg[:, None, None]
     if train_test_exp:
@@ -432,15 +464,15 @@ def sharded_loss_grads(g: gm.GaussianParams, exposure_all: torch.Tensor,
     got = [torch.zeros_like(x) if d is None else d
            for x, d in zip(inputs, got)]
     nf = len(fields)
-    grads = {k: torch.cat([got[o * nf + i] for o in range(n_shards)])
+    grads = {k: parts.join([got[o * nf + i] for o in range(mine)])
              for i, k in enumerate(fields)}
-    tap_grad = torch.cat(got[n_shards * nf:n_shards * (nf + 1)])
+    tap_grad = parts.join(got[mine * nf:mine * (nf + 1)])
     out = out._replace(full=out.full.detach(), radii=out.radii.detach())
     return (loss.detach(), l1.detach(), dl1.detach(), out, grads, got[-1],
             tap_grad)
 
 
-def make_sharded_train_step(n_shards: int, *, image_width: int,
+def make_sharded_train_step(n_shards, *, image_width: int,
                             image_height: int, opt: OptimizationConfig,
                             rcfg: RasterizerConfig, spatial_lr_scale: float,
                             antialiasing: bool = False,
@@ -450,20 +482,21 @@ def make_sharded_train_step(n_shards: int, *, image_width: int,
                             transient: str = "replicated"):
     """Build the sharded train step: (state, cam, gt, alpha_mask,
     invdepth_gt, depth_mask, bg) -> (state, StepAux), with the semantics of
-    ``trainer.train_step`` and every per-gaussian quantity in row shards.
-    The loss takes ``losses.ssim``, as the JAX package's sharded step does
-    (on the card, the fused SSIM kernels: one forward and one backward
-    launch per step).
-    Adam and the statistics are elementwise, so they update every shard's
-    rows where they lie."""
+    ``trainer.train_step`` and every per-gaussian quantity in row shards
+    (``n_shards``: an int D, or a ``RankParts`` whose ranks each hold their
+    rows of the state). The loss takes ``losses.ssim``, as the JAX
+    package's sharded step does (on the card, the fused SSIM kernels: one
+    forward and one backward launch per step). Adam and the statistics are
+    elementwise, so they update every shard's rows where they lie."""
+    parts = as_parts(n_shards)
 
     def step(state: "trainer.TrainState", cam: CameraView, gt_image,
              alpha_mask, invdepth_gt, depth_mask, bg):
-        shard_state(state, n_shards)
+        _check_divides(parts, state.gaussians.capacity)
         stepc = state.step + 1
         loss, l1, dl1, out, grads, exp_grads, tap_grad = sharded_loss_grads(
             state.gaussians, state.exposure, cam, gt_image, alpha_mask,
-            invdepth_gt, depth_mask, bg, stepc, n_shards=n_shards,
+            invdepth_gt, depth_mask, bg, stepc, n_shards=parts,
             image_width=image_width, image_height=image_height, opt=opt,
             rcfg=rcfg, antialiasing=antialiasing,
             train_test_exp=train_test_exp, use_depth=use_depth,
@@ -484,19 +517,21 @@ def make_sharded_train_step(n_shards: int, *, image_width: int,
     return step
 
 
-def make_sharded_dp_train_step(mesh, n_shards: int, *,
-                               data_axis: str = "data",
+def make_sharded_dp_train_step(mesh, *, data_axis: str = "data",
+                               prim_axis: str = "prim",
                                transient: str = "replicated", **kw):
     """The 2-D step: camera data parallelism over the ranks of
-    ``data_axis`` composed with gaussian-sharded storage in ``n_shards``
-    row shards on each rank. It is ``parallel/dp.py``'s step with each
-    rank's view through the sharded render (``sharded_loss_grads``): the
-    shards' gradients, the loss values and the densification increments
-    are reduced over the data axis as a view's are there. JAX
-    differentiates a batch-mean loss and so sums the data axis's cotangents
-    in ``_psum_grad`` and scales each view's tap gradient back by the
-    batch; each rank here differentiates its own view's loss, which gives
-    the same values. Keywords of ``make_sharded_train_step``, with the
-    rank's camera and images."""
+    ``data_axis`` composed with gaussian-sharded storage over the ranks of
+    ``prim_axis`` (JAX's ``data`` x ``prim`` mesh: each rank holds its
+    prim coordinate's rows and renders its data coordinate's camera). It is
+    ``parallel/dp.py``'s step with each rank's view through the sharded
+    render (``sharded_loss_grads``): the shards' gradients, the loss values
+    and the densification increments are reduced over the data axis as a
+    view's are there. JAX differentiates a batch-mean loss and so sums the
+    data axis's cotangents in ``_psum_grad`` and scales each view's tap
+    gradient back by the batch; each rank here differentiates its own
+    view's loss, which gives the same values. Keywords of
+    ``make_sharded_train_step``, with the rank's camera and images."""
+    parts = RankParts(mesh, prim_axis)
     return dp.make_dp_train_step(mesh, axis=data_axis, loss_grads=partial(
-        sharded_loss_grads, n_shards=n_shards, transient=transient), **kw)
+        sharded_loss_grads, n_shards=parts, transient=transient), **kw)

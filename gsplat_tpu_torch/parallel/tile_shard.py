@@ -11,9 +11,16 @@ composites them with ``tile_id_base`` set to its first tile's id in the
 full grid, so that the pixel coordinates are the frame's. Tiles are
 independent, so the bands' images are exactly the single render's rows.
 
-The bands run one after another on the device the gaussians lie on; where
-the JAX package all-gathers the bands' rows, ``gather_parts`` stacks the
-local list. Autograd sums the bands' cotangents into the shared parameters.
+The bands are the parts of ``gsplat_tpu_torch.parallel``: an int K runs
+them one after another on the device the gaussians lie on
+(``LocalParts``); a ``RankParts(mesh, "tile")`` runs one band per rank,
+every rank preprocessing the whole (replicated) set and returning the whole
+frame. The bands' rows are all-gathered, the gather's backward handing
+each part its own band's cotangent; the packed table, which every part
+computes alike and differentiates with its own band's cotangent, sums the
+parts' gradients once (``sum_grad``: JAX's ``_psum_grad`` on the
+replicated parameters; locally autograd's accumulation over the K bands is
+that sum).
 The compositor needs no whole number of strips, so the JAX package's strip
 rounding of the per-band capacity has no counterpart, and its ``row_cull``
 branch is not ported: the port's config has no ``row_cull``.
@@ -31,21 +38,24 @@ from gsplat_tpu_torch.ops import binning as binning_lib
 from gsplat_tpu_torch.ops import preprocess as preprocess_lib
 from gsplat_tpu_torch.ops.rasterize import (_tiles_to_image,
                                             composite_dispatch, pack_entries)
-from gsplat_tpu_torch.parallel import gather_parts
+from gsplat_tpu_torch.parallel import as_parts
 
 
 def render_tile_sharded(gaussians: GaussianParams, cam: CameraView,
                         image_width: int, image_height: int,
                         bg_color: torch.Tensor, cfg: RasterizerConfig, *,
-                        n_bands: int, antialiasing: bool = False,
+                        n_bands, antialiasing: bool = False,
                         m_cap: Optional[int] = None):
-    """Render with the tile rows split into ``n_bands`` bands. Returns
+    """Render with the tile rows split into ``n_bands`` bands (an int K: all
+    K in this process; a ``RankParts``: one per rank). Returns
     (image (3,H,W) clamped, invdepth (1,H,W), num_pairs (), overflow ()):
     the pairs summed over the bands, and the largest number any band
     dropped. ``m_cap`` is the whole frame's pair capacity; a band gets 1.5×
     its share. A scene with its pairs crowded into one band can overflow it
     while the frame's count fits: treat ``overflow > 0`` frames as garbage
     and render again with more, as on the single-render path."""
+    parts = as_parts(n_bands)
+    n_bands = parts.n
     W, H = image_width, image_height
     th, tw = cfg.tile_h, cfg.tile_w
     n_tiles_x = -(-W // tw)
@@ -63,11 +73,11 @@ def render_tile_sharded(gaussians: GaussianParams, cam: CameraView,
         gaussians.active_sh_degree, cam, W, H,
         active_mask=gaussians.active, antialiasing=antialiasing,
         dilation=cfg.dilation, alpha_min=cfg.alpha_min)
-    packed = pack_entries(pre)                                   # (N+1,16)
+    packed = parts.sum_grad(pack_entries(pre))                   # (N+1,16)
     mean2d = pre.mean2d.detach()
 
     rows, pairs, overflow = [], [], []
-    for k in range(n_bands):
+    for k in parts.mine:
         # the band's window of tile rows, at the band's capacity
         b = binning_lib.bin_gaussians(
             mean2d, pre.depth.detach(), pre.radius.detach(),
@@ -88,10 +98,10 @@ def render_tile_sharded(gaussians: GaussianParams, cam: CameraView,
         pairs.append(b.num_pairs)
         overflow.append(b.overflow)
 
-    full = gather_parts(rows)                                    # (K,5,h,W)
+    full = parts.gather(rows)                                    # (K,5,h,W)
     full = full.permute(1, 0, 2, 3).reshape(5, n_bands * rows_loc * th, W)
     full = full[:, :H, :]
     image = torch.clamp(full[:3] + full[4:5] * bg_color[:, None, None],
                         0.0, 1.0)
-    return (image, full[3:4], gather_parts(pairs).sum(),
-            gather_parts(overflow).amax())
+    return (image, full[3:4], parts.psum_value(pairs),
+            parts.pmax_value(overflow))

@@ -15,6 +15,17 @@ The reference zeroes max_radii2D before its screen-size prune reads it, so
 that prune never fires; the stats are zeroed before pruning here too.
 Split samples are N(0, scale) draws from a ``torch.Generator``; a caller
 can hand in its own standard-normal draws as ``noise``.
+
+One body serves one process and a row-sharded state over ranks
+(``parts``, a ``RankParts``: rank k holds global rows [k·R, (k+1)·R)); in
+one process the state is one part. On ranks the event is the whole
+state's, bit for bit, without gathering it: the ranks all-gather their
+counts of free slots, clones and splits, and each adds the exclusive
+offsets of the ranks before it to its local ranks. Only the selected
+source rows travel, each to the rank that owns its slot, which writes it.
+Every rank draws the split samples with the global shape from the same
+generator and keeps its rows, so the draws are one process's; the draw is
+two (CAP, 3) float32 tensors on every rank, CAP the global capacity.
 """
 from __future__ import annotations
 
@@ -22,11 +33,13 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from gsplat_tpu_torch.core.transforms import inverse_sigmoid, quat_to_rotmat
 from gsplat_tpu_torch.models.gaussian_model import (TRAINABLE_FIELDS,
                                                     GaussianParams)
+from gsplat_tpu_torch.parallel import LocalParts, exchange
 from gsplat_tpu_torch.train.optim import AdamState
 
 
@@ -57,102 +70,143 @@ def add_densification_stats(stats: DensifyStats, radii: torch.Tensor,
                                 stats.max_radii2d))
 
 
-def _scatter_rows(leaf: torch.Tensor, dest: torch.Tensor,
-                  rows: torch.Tensor) -> torch.Tensor:
-    """leaf with rows[i] written at dest[i]; dest == capacity drops it."""
-    keep = dest < leaf.shape[0]
-    out = leaf.clone()
-    out[dest[keep]] = rows[keep]
-    return out
-
-
 def densify_and_prune(g: GaussianParams, adam: AdamState, stats: DensifyStats,
                       generator: Optional[torch.Generator] = None, *,
                       max_grad: float, min_opacity: float, extent: float,
                       percent_dense: float, use_screen_size_prune: bool,
                       max_screen_size: float = 20.0,
-                      noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                      ) -> Tuple[GaussianParams, AdamState, DensifyStats,
-                                 int]:
+                      noise: Optional[Tuple[torch.Tensor,
+                                            torch.Tensor]] = None,
+                      parts=None) -> Tuple[GaussianParams, AdamState,
+                                           DensifyStats, int]:
     """One densify + prune event. ``noise`` = (eps1, eps2), each (CAP,3)
     standard-normal draws for the two children of a split; without it they
-    are drawn from ``generator``. Returns (params, adam, stats, overflow)."""
-    cap = g.capacity
+    are drawn from ``generator``. ``g``, ``adam`` and ``stats`` are the
+    rows of part ``k`` of ``parts`` (a ``RankParts``: this rank's rows of a
+    row-sharded state; by default one part, the whole state) and CAP is the
+    global capacity. Returns (params, adam, stats, overflow).
+
+    A slot's destination order q is a clone's global rank, or
+    n_clone + 2·(a split's global rank) + child; slot q is the q-th free
+    slot of the whole state, on the part whose free-slot range holds q."""
+    parts = LocalParts(1) if parts is None else parts
+    (k,) = parts.mine
+    n = parts.n
+    rows = g.capacity
     dev = g.device
     active = g.active
     grads = torch.where(stats.denom > 0, stats.xyz_gradient_accum
                         / torch.clamp(stats.denom, min=1.0), 0.0)
     scaling_act = g.get_scaling()
     max_scale = scaling_act.amax(dim=1)
-
     hit = active & (grads >= max_grad)
     mask_c = hit & (max_scale <= percent_dense * extent)       # clone
     mask_s = hit & (max_scale > percent_dense * extent)        # split
-
-    # slot allocation: clones first, then split pairs
     free = ~active
-    n_free = int(free.sum())
-    free_slot = torch.full((cap,), cap, dtype=torch.long, device=dev)
-    free_slot[:n_free] = torch.nonzero(free).squeeze(1)  # r-th free slot
-    n_clone = int(mask_c.sum())
-    clone_rank = torch.cumsum(mask_c.long(), 0) - 1
-    split_rank = torch.cumsum(mask_s.long(), 0) - 1
-    n_split = int(mask_s.sum())
 
-    def take_free(r, m):
-        ok = m & (r < n_free)
-        return torch.where(ok, free_slot[torch.where(ok, r, cap - 1)], cap)
-
-    dest_c = take_free(clone_rank, mask_c)
-    dest_s1 = take_free(n_clone + 2 * split_rank, mask_s)
-    dest_s2 = take_free(n_clone + 2 * split_rank + 1, mask_s)
+    counts = parts.gather([torch.stack([free.sum(), mask_c.sum(),
+                                        mask_s.sum()])]).cpu()   # (n, 3)
+    ends = torch.cumsum(counts, 0)                       # inclusive, per part
+    starts = ends - counts
+    n_free, n_clone, n_split = (int(x) for x in ends[-1])
     overflow = max(n_clone + 2 * n_split - n_free, 0)
-    placed_s = mask_s & (dest_s1 < cap) & (dest_s2 < cap)
-    dest_s1 = torch.where(placed_s, dest_s1, cap)
-    dest_s2 = torch.where(placed_s, dest_s2, cap)
 
-    # split samples: x_new = R eps + x, eps ~ N(0, scale)
+    # split samples: x_new = R eps + x, eps ~ N(0, scale); the global draw,
+    # this part's rows of it
     if noise is None:
-        noise = tuple(torch.randn((cap, 3), generator=generator, device=dev)
-                      for _ in range(2))
-    R = quat_to_rotmat(g.get_rotation())                      # (CAP,3,3)
+        noise = tuple(torch.randn((rows * n, 3), generator=generator,
+                                  device=dev) for _ in range(2))
+    noise = tuple(x[k * rows:(k + 1) * rows] for x in noise)
+    R = quat_to_rotmat(g.get_rotation())                      # (rows,3,3)
     xyz_s1 = g.xyz + torch.einsum("nij,nj->ni", R, noise[0] * scaling_act)
     xyz_s2 = g.xyz + torch.einsum("nij,nj->ni", R, noise[1] * scaling_act)
     scaling_new = torch.log(scaling_act / (0.8 * 2))
 
-    new_g = {k: getattr(g, k) for k in TRAINABLE_FIELDS}
-    mu, nu = dict(adam.mu), dict(adam.nu)
-    for name in TRAINABLE_FIELDS:
-        src = new_g[name]
+    # this part's sources, in destination order: the clones, then each
+    # placed split's two children (a split is placed whole or not at all)
+    src_c = torch.nonzero(mask_c).squeeze(1)
+    src_s = torch.nonzero(mask_s).squeeze(1)
+    q_c = int(starts[k, 1]) + torch.arange(src_c.numel(), device=dev)
+    s_glob = int(starts[k, 2]) + torch.arange(src_s.numel(), device=dev)
+    placed = n_clone + 2 * s_glob + 1 < n_free
+    keep_c = q_c < n_free
+
+    def child_rows(name):
+        src = getattr(g, name)
         if name == "xyz":
-            rows_s1, rows_s2 = xyz_s1, xyz_s2
+            a, b = xyz_s1, xyz_s2
         elif name == "scaling":
-            rows_s1 = rows_s2 = scaling_new
+            a = b = scaling_new
         else:
-            rows_s1 = rows_s2 = src
-        leaf = _scatter_rows(src, dest_c, src)
-        leaf = _scatter_rows(leaf, dest_s1, rows_s1)
-        new_g[name] = _scatter_rows(leaf, dest_s2, rows_s2)
-        zero = torch.zeros_like(mu[name])
-        for d in (dest_c, dest_s1, dest_s2):
-            mu[name] = _scatter_rows(mu[name], d, zero)
-            nu[name] = _scatter_rows(nu[name], d, zero)
+            a = b = src
+        sel = src_s[placed]
+        return torch.cat([src[src_c[keep_c]], torch.stack(
+            [a[sel], b[sel]], dim=1).reshape((-1,) + src.shape[1:])])
 
-    # activate the new rows, retire the split originals
-    true = torch.ones((cap,), dtype=torch.bool, device=dev)
-    for d in (dest_c, dest_s1, dest_s2):
-        active = _scatter_rows(active, d, true)
-    active = torch.where(placed_s, False, active)
+    payload = torch.cat([child_rows(name).reshape(-1, int(np.prod(
+        getattr(g, name).shape[1:], dtype=np.int64)))
+        for name in TRAINABLE_FIELDS], dim=1)
+    sp = n_clone + 2 * s_glob[placed]
+    q = torch.cat([q_c[keep_c], torch.stack([sp, sp + 1], 1).reshape(-1)])
+    free_ends = ends[:, 0].contiguous().to(dev)
+    dest = torch.searchsorted(free_ends, q, right=True)      # owner part
 
-    stats = init_stats(cap, dev)
+    # this part's free slots and the part each one's source lies on
+    slots = torch.nonzero(free).squeeze(1)
+    q_mine = int(starts[k, 0]) + torch.arange(slots.numel(), device=dev)
+    is_c = q_mine < n_clone
+    s_of = torch.div(q_mine - n_clone, 2, rounding_mode="floor")
+    is_s = (~is_c & (q_mine < n_clone + 2 * n_split)
+            & (n_clone + 2 * s_of + 1 < n_free))
+    src_part = torch.where(
+        is_c, torch.searchsorted(ends[:, 1].contiguous().to(dev), q_mine,
+                                 right=True),
+        torch.searchsorted(ends[:, 2].contiguous().to(dev), s_of,
+                           right=True))
+    src_part = torch.where(is_c | is_s, src_part, -1)
+
+    # only the selected rows travel, each to the part that owns its slot
+    dest_h, src_h = dest.cpu(), src_part.cpu()
+    sends = [(parts.line[j], payload[dest == j]) for j in range(n)
+             if j != k and int((dest_h == j).sum())]
+    recvs = [(j, payload.new_empty((int((src_h == j).sum()),
+                                    payload.shape[1])))
+             for j in range(n) if j != k and int((src_h == j).sum())]
+    got = exchange(sends, [(parts.line[j], like) for j, like in recvs], dev)
+    incoming = dict(zip([j for j, _ in recvs], got))
+    incoming[k] = payload[dest == k]
+    land = torch.empty((slots.numel(), payload.shape[1]), device=dev)
+    for j, rows_j in incoming.items():
+        land[src_part == j] = rows_j
+    filled = src_part >= 0
+    dst = slots[filled]
+    land = land[filled]
+
+    # write the new rows with zeroed Adam moments, activate them, retire
+    # the split originals
+    new_g, mu, nu = {}, dict(adam.mu), dict(adam.nu)
+    at = 0
+    for name in TRAINABLE_FIELDS:
+        src = getattr(g, name)
+        w = int(np.prod(src.shape[1:], dtype=np.int64))
+        leaf = src.clone()
+        leaf[dst] = land[:, at:at + w].reshape((-1,) + src.shape[1:])
+        new_g[name] = leaf
+        at += w
+        for m in (mu, nu):
+            m[name] = m[name].clone()
+            m[name][dst] = 0.0
+    active = active.clone()
+    active[dst] = True
+    active[src_s[placed]] = False
+
+    stats = init_stats(rows, dev)
     prune = torch.sigmoid(new_g["opacity"]) < min_opacity
     if use_screen_size_prune:
         big_vs = stats.max_radii2d > max_screen_size   # zeroed: never fires
         big_ws = torch.exp(new_g["scaling"]).amax(dim=1) > 0.1 * extent
         prune = prune | big_vs | big_ws
-    active = active & ~prune
-
-    g2 = dataclasses.replace(g, active=active, **new_g)
+    g2 = dataclasses.replace(g, active=active & ~prune, **new_g)
     return g2, AdamState(mu=mu, nu=nu, count=adam.count), stats, overflow
 
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -59,31 +59,78 @@ def init_state(gaussians: gm.GaussianParams, n_images: int) -> TrainState:
         stats=densify_lib.init_stats(gaussians.capacity, dev), step=0)
 
 
-def state_from_numpy(arrays: dict, *, device="cuda") -> TrainState:
+def state_from_numpy(arrays: dict, *, device="cuda",
+                     rows: Optional[slice] = None) -> TrainState:
     """A training state from numpy arrays, so that the port can take a step
     from the same state as the JAX package: ``arrays`` has the keys of a
     JAX ``TrainState`` (``gaussians``: its fields; ``adam`` and
     ``exp_adam``: ``mu`` and ``nu`` dicts and ``count``; ``exposure``;
-    ``stats``: the three ``DensifyStats`` fields; ``step``)."""
-    g = gm.from_numpy(arrays["gaussians"], device=device)
+    ``stats``: the three ``DensifyStats`` fields; ``step``). With ``rows``
+    every per-gaussian array keeps only those rows (a rank's shard,
+    ``parallel/sharded.py:own_rows``); only they go to ``device``."""
+    g = gm.from_numpy(arrays["gaussians"], device=device, rows=rows)
     dev = g.device
+    rows = rows or slice(None)
 
-    def t(a):
-        return torch.tensor(np.asarray(a, np.float32), device=dev)
+    def t(a, r=slice(None)):
+        return torch.tensor(np.asarray(a, np.float32)[r], device=dev)
 
-    def adam(a):
-        return optim.AdamState(mu={k: t(v) for k, v in a["mu"].items()},
-                               nu={k: t(v) for k, v in a["nu"].items()},
+    def adam(a, r=slice(None)):
+        return optim.AdamState(mu={k: t(v, r) for k, v in a["mu"].items()},
+                               nu={k: t(v, r) for k, v in a["nu"].items()},
                                count=int(a["count"]))
 
     st = arrays["stats"]
     return TrainState(
-        gaussians=g, adam=adam(arrays["adam"]), exposure=t(arrays["exposure"]),
-        exp_adam=adam(arrays["exp_adam"]),
+        gaussians=g, adam=adam(arrays["adam"], rows),
+        exposure=t(arrays["exposure"]), exp_adam=adam(arrays["exp_adam"]),
         stats=densify_lib.DensifyStats(**{
-            k: t(st[k]) for k in ("xyz_gradient_accum", "denom",
-                                  "max_radii2d")}),
+            k: t(st[k], rows) for k in ("xyz_gradient_accum", "denom",
+                                        "max_radii2d")}),
         step=int(arrays["step"]))
+
+
+def row_tensors(state: TrainState) -> List[torch.Tensor]:
+    """Every per-gaussian tensor of the state, in one fixed order: the
+    gaussians' fields, Adam's first and second moments by sorted key, the
+    densification statistics."""
+    g, a, st = state.gaussians, state.adam, state.stats
+    return ([getattr(g, k) for k in gm.TENSOR_FIELDS]
+            + [a.mu[k] for k in sorted(a.mu)] + [a.nu[k] for k in sorted(a.nu)]
+            + [getattr(st, f.name) for f in dataclasses.fields(st)])
+
+
+def with_row_tensors(state: TrainState, tensors: Sequence[torch.Tensor]
+                     ) -> TrainState:
+    """The state with its per-gaussian tensors replaced, in
+    ``row_tensors``' order."""
+    it = iter(tensors)
+    g = dataclasses.replace(state.gaussians,
+                            **{k: next(it) for k in gm.TENSOR_FIELDS})
+    keys = sorted(state.adam.mu)
+    mu = {k: next(it) for k in keys}
+    nu = {k: next(it) for k in keys}
+    stats = densify_lib.DensifyStats(**{
+        f.name: next(it) for f in dataclasses.fields(state.stats)})
+    return dataclasses.replace(
+        state, gaussians=g, stats=stats,
+        adam=optim.AdamState(mu=mu, nu=nu, count=state.adam.count))
+
+
+def map_rows(state: TrainState, fn) -> TrainState:
+    """``fn`` applied to every per-gaussian tensor of the state."""
+    return with_row_tensors(state, [fn(t) for t in row_tensors(state)])
+
+
+def to_device(state: TrainState, device) -> TrainState:
+    """The state with every tensor on ``device``."""
+    state = map_rows(state, lambda t: t.to(device))
+    ea = state.exp_adam
+    return dataclasses.replace(
+        state, exposure=state.exposure.to(device),
+        exp_adam=optim.AdamState(
+            mu={k: v.to(device) for k, v in ea.mu.items()},
+            nu={k: v.to(device) for k, v in ea.nu.items()}, count=ea.count))
 
 
 def _lr_dict(opt: OptimizationConfig, step: int,
@@ -201,13 +248,17 @@ def train_step(state: TrainState, cam: CameraView, gt_image: torch.Tensor,
 
 def densify_step(state: TrainState, generator: Optional[torch.Generator],
                  extent: float, *, opt: OptimizationConfig,
-                 use_screen_size_prune: bool, noise=None):
-    """One densify + prune event. Returns (new state, overflow)."""
+                 use_screen_size_prune: bool, noise=None, parts=None):
+    """One densify + prune event. Returns (new state, overflow). With
+    ``parts`` (a ``RankParts``) the state is this rank's rows of a
+    row-sharded state, and the event is the whole state's
+    (``densify_and_prune``)."""
     g, adam, stats, overflow = densify_lib.densify_and_prune(
         state.gaussians, state.adam, state.stats, generator,
         max_grad=opt.densify_grad_threshold, min_opacity=0.005,
         extent=extent, percent_dense=opt.percent_dense,
-        use_screen_size_prune=use_screen_size_prune, noise=noise)
+        use_screen_size_prune=use_screen_size_prune, noise=noise,
+        parts=parts)
     return dataclasses.replace(state, gaussians=g, adam=adam,
                                stats=stats), overflow
 

@@ -22,6 +22,9 @@ from gsplat_tpu_torch.ops.composite_ref import (_TileWalk, composite_tiles_plain
 from torch_cull_cases import (CFG, CONSTS, KINDS, N, SHAPE_IDS, SHAPES, conic,
                               frame)
 
+# two torch threads per test worker, as tests/torch_parity.py sets them
+torch.set_num_threads(2)
+
 
 def _live_and_inside(args, geo):
     """Over the whole frame: (pairs passing the alpha test, pairs inside

@@ -18,9 +18,9 @@ import time
 import numpy as np
 import pytest
 
-from test_torch_dp import _assert_ranks_equal, _free_port, _spawn
+from test_torch_dp import _assert_ranks_equal
 from test_torch_viewer import H, W, _payload, _recv_exact
-from torch_parity import make_colmap_scene
+from torch_parity import free_port, make_colmap_scene, spawn
 
 GROUP_TIMEOUT = 5.0    # seconds a collective of the steps waits
 HOLD_S = 6.0           # each of rank 0's waits outlasts it
@@ -71,7 +71,7 @@ def ranks(tmp_path_factory):
     with no bridge (where the bridge's wait would cover them)."""
     root = tmp_path_factory.mktemp("dp_bridge")
     src = make_colmap_scene(str(root / "scene"))
-    port = _free_port()
+    port = free_port()
     frames = []
     client = threading.Thread(target=_client, args=(port, frames))
     client.start()
@@ -83,7 +83,7 @@ def ranks(tmp_path_factory):
         slow_save=dict(job, model=str(root / "slow"),
                        hooks=([], [2, ITERS], []), slow_save=HOLD_S))
     try:
-        results = _spawn(2, jobs, str(root / "ranks"), timeout=GROUP_TIMEOUT)
+        results = spawn(2, jobs, str(root / "ranks"), timeout=GROUP_TIMEOUT)
     finally:
         client.join(timeout=60)
     assert not client.is_alive()

@@ -297,7 +297,9 @@ def test_ring_gather_function_gradient_matches_index_select(rng):
     slabs = [s.clone().requires_grad_()
              for s in tsh.shard_rows(packed, N_SHARDS)]
     ent = tsh._RingGatherEntries.apply(idx, b.inv_src, b.g_offsets,
-                                       b.g_counts, rank_inv, 1, m_cap, *slabs)
+                                       b.g_counts, rank_inv, 1,
+                                       tpar.LocalParts(N_SHARDS), m_cap,
+                                       *slabs)
     ref_in = torch.cat([packed, packed.new_zeros((1, 16))]).requires_grad_()
     ref = ref_in.index_select(0, idx)
     np.testing.assert_array_equal(t2n(ent), t2n(ref))
