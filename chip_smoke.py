@@ -53,6 +53,14 @@ Phases, each printing its own line:
    OptimizationConfig, dense Adam): one warm-up step, then 5 timed steps
    with every kernel's launch count read around exactly those steps, and
    one profiled step;
+5b. per-tile-row ellipse culling (``row_cull``) off and on, on phase 5's
+   scene: the pairs, every culled tile's set a subset of its rectangle
+   set and every dropped pair below the alpha floor at every pixel of its
+   tile (on the device), the compositor pair against its plain versions
+   on the culled list and timed on both lists in turns with their bounds,
+   the image and the step's gradients (whether bit for bit), frame and
+   step medians in turns with device busy, exact launches of the culled
+   calls;
 6. the depth-slab and tile-band paths at full width, on the phase-5 scene:
    ``render_prim_sharded`` with 4 slabs from the 5 poses under
    torch.no_grad() and one forward plus backward of an L1 loss, held to
@@ -66,9 +74,16 @@ Phases, each printing its own line:
    transient's and to the single render's under the same loss, with the
    launch counts read around exactly those; one ring step profiled with
    the loss's SSIM on the fused kernels and with the plain SSIM, in turns;
+7b. one culled frame of the slab, band and three sharded paths against
+   the single culled render at phases 6-7's gates, one culled ring step,
+   ``slab_tmit`` and the scan on culled inputs against their plain
+   versions;
 8. the training loop at full width: a COLMAP scene of bench.py's cloud
    with 8 cameras at 1920x1080, trained 60 iterations (run A), resumed
    from its checkpoint (run B), then 6 iterations of the sharded loop;
+   whether the native image loader built, Scene init with it and with
+   PIL (the same images), and the depth-scale CLI on the scene with
+   synthetic 16-bit inverse depths against their known scales;
 9. evaluation and viewing on run A's model: the render CLI on its test
    view and the metrics CLI with random LPIPS weights written from the
    seed (``results.json``, ``per_view.json``; SSIM on the card against
@@ -102,7 +117,10 @@ Phases, each printing its own line:
    phase 8's scene, 10 iterations with a densify event that outgrows the
    capacity, the rows gathered bit for bit this process's ``n_shards=2``
    loop (both under torch's deterministic algorithms), rank 0's
-   checkpoint its file, rank 1 writing nothing; exact launches per rank.
+   checkpoint its file, rank 1 writing nothing; exact launches per rank;
+   (e) the same loop over 2 ranks (ring) under rank 0's SIBR bridge, every
+   rank rendering each frame, each bit for bit the one-process sharded
+   render of the gathered rows.
 Then a ``kernels`` JSON line with one object per kernel of the KERNELS
 table, the nvidia-smi line, and a final JSON line.
 
@@ -1521,6 +1539,364 @@ def sharded_phase(state, cams, cam, gt, cfg, scfg, m_loc, pairs):
     return total
 
 
+# --------------------------------------------------------- phases 5b, 7b
+# Per-tile-row ellipse culling (the config's ``row_cull``) off and on in
+# this one process, on phase 5's scene: the culled pairs against the
+# rectangles' (a subset per tile, every dropped pair below the alpha floor
+# at every pixel of its tile), the kernels on the culled list against their
+# plain versions and timed beside the rectangle list, the image and the
+# step's gradients, frame and step medians in turns with device busy; then
+# (7b) one culled frame of each split and sharded path against the single
+# culled render, and one culled ring step.
+CULL_ROUNDS = 3            # rounds of (off, on, on, off) frames and steps
+CULL_CHUNK = 1 << 15       # dropped pairs checked per pass
+
+
+def culled(cfg):
+    return dataclasses.replace(cfg, row_cull=True)
+
+
+class LaunchDelta:
+    """Launch counts summed over the calls made inside ``with`` blocks
+    only: the culled calls of turns that interleave both forms."""
+
+    def __init__(self):
+        self.total = {name: 0 for name in KERNELS}
+
+    def __enter__(self):
+        self._before = read_launches()
+
+    def __exit__(self, *exc):
+        after = read_launches()
+        for k in self.total:
+            self.total[k] += after[k] - self._before[k]
+        return False
+
+
+def pair_keys(e):
+    """tile · (N+1) + storage row of every entry in a tile's range, and N."""
+    b = e.binning
+    n = b.perm.shape[0]
+    tc = b.tile_count.long()
+    tiles = torch.repeat_interleave(
+        torch.arange(tc.numel(), device=tc.device), tc)
+    first = torch.cumsum(tc, 0) - tc
+    pos = (b.tile_start.long()[tiles] - first[tiles]
+           + torch.arange(tiles.numel(), device=tc.device))
+    perm_ext = torch.cat([b.perm, b.perm.new_full((1,), n)])
+    return tiles * (n + 1) + perm_ext[b.gidx_sorted[pos]], n
+
+
+def check_cull_exact(label, e_rect, e_cull, cfg):
+    """On the device: every tile's culled set is a subset of its rectangle
+    set, and every dropped pair has q > t_cut at every pixel of its whole
+    tile (alpha below alpha_min: what the compositor skips). Returns
+    (rect pairs, culled pairs, dropped pairs, the smallest margin)."""
+    k0, n = pair_keys(e_rect)
+    k1, _ = pair_keys(e_cull)
+    extra = int((~torch.isin(k1, k0)).sum())
+    check(extra == 0, f"{label}: row culling ADDED {extra} pairs")
+    drop = k0[~torch.isin(k0, k1)]
+    pre = e_rect.pre
+    th, tw, ntx = cfg.tile_h, cfg.tile_w, e_rect.n_tiles_x
+    dev = drop.device
+    py, px = torch.meshgrid(torch.arange(th, device=dev),
+                            torch.arange(tw, device=dev), indexing="ij")
+    py, px = py.reshape(1, -1), px.reshape(1, -1)
+    bad, margin = 0, float("inf")
+    for s in range(0, drop.numel(), CULL_CHUNK):
+        t, g = drop[s:s + CULL_CHUNK] // (n + 1), drop[s:s + CULL_CHUNK] % (
+            n + 1)
+        dx = ((t % ntx)[:, None] * tw + px).float() - pre.mean2d[g, 0:1]
+        dy = ((t // ntx)[:, None] * th + py).float() - pre.mean2d[g, 1:2]
+        c = pre.conic[g]
+        q = (c[:, 0:1] * dx * dx + 2 * c[:, 1:2] * dx * dy
+             + c[:, 2:3] * dy * dy)
+        m = q.amin(dim=1) - pre.t_cut[g]
+        bad += int((m <= 0).sum())
+        if m.numel():
+            margin = min(margin, float(m.min()))
+    check(bad == 0, f"{label}: {bad} dropped pairs pass the alpha test at a "
+          f"pixel of their tile")
+    return k0.numel(), k1.numel(), drop.numel(), margin
+
+
+def cull_kernels(e0, e1, cfg, rng):
+    """composite_fwd and composite_bwd on the culled list against their
+    plain versions (the forward on the whole frame, the backward on 16
+    tiles), then both kernels timed on both lists in turns (off, on, on,
+    off), with their bounds on each. The contributing pairs the bounds
+    charge are the same on both lists (culling drops only pairs that pass
+    no alpha test), counted by the walk of the culled list."""
+    geo = dict(n_tiles_x=e1.n_tiles_x, n_tiles_y=e1.n_tiles_y,
+               tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+               alpha_min=cfg.alpha_min, alpha_max=cfg.alpha_max)
+    fwd_kw = dict(chunk=cfg.chunk, t_eps=cfg.transmittance_eps)
+    full = dict(geo, **fwd_kw)
+    lists = [(e.entries, e.binning.tile_start, e.binning.tile_count)
+             for e in (e0, e1)]
+    label = "training frame, row_cull"
+    kern1, f_err, mismatch, f_plain_ms = fwd_vs_plain(label, lists[1], full)
+    with torch.no_grad():
+        kern0 = composite_fwd_cuda(*lists[0], **full)
+    fwd_bits = all(torch.equal(getattr(kern0, k), getattr(kern1, k))
+                   for k in ("accum", "t_final"))
+    walk = pair_walk(label, *lists[1], full,
+                     device_cull_rects(label, *lists[1], full),
+                     kern1.n_contrib)
+    print(walk_line(label, walk), flush=True)
+    T, P = e1.n_tiles_x * e1.n_tiles_y, cfg.tile_h * cfg.tile_w
+    ga, gt = cotangents(rng, T, P, e1.entries.device)
+    tc = pick_tiles(e1.binning.tile_count, rng)
+    b_err, _, b_plain_ms = bwd_vs_plain(label, lists[1][0], lists[1][1], tc,
+                                        ga, gt, geo, fwd_kw)
+    bwd_args = [(*a, k.t_final, k.n_contrib, ga, gt)
+                for a, k in zip(lists, (kern0, kern1))]
+    ms = {"fwd": ([], []), "bwd": ([], [])}
+    with torch.no_grad():
+        for i in (0, 1, 1, 0):
+            ms["fwd"][i].append(median_ms(
+                lambda: composite_fwd_cuda(*lists[i], **full), 20))
+            ms["bwd"][i].append(median_ms(
+                lambda: composite_bwd_cuda(*bwd_args[i], **geo), 20))
+    hits = walk["hits"]
+    out = {}
+    for name, ops, work in (
+            ("composite_fwd", OPS_PER_EVAL,
+             lambda a, k: fwd_work(a[2], k.n_contrib)),
+            ("composite_bwd", OPS_PER_EVAL_BWD,
+             lambda a, k: bwd_work(a[0].shape[0], a[2], k.n_contrib))):
+        key = "fwd" if name == "composite_fwd" else "bwd"
+        bnds = [bound(work(a, k)[2], hits * ops)
+                for a, k in zip(lists, (kern0, kern1))]
+        rows = [work(a, k)[0] for a, k in zip(lists, (kern0, kern1))]
+        out[name] = dict(
+            max_abs_err=f_err if key == "fwd" else b_err,
+            plain_ms=f_plain_ms if key == "fwd" else b_plain_ms,
+            ms=float(np.median(ms[key][1])),
+            rect_ms=float(np.median(ms[key][0])), rows=rows[1],
+            rect_rows=rows[0], rect_bound_ms=bnds[0]["bound_ms"], **bnds[1])
+        print(f"row_cull kernels: {name} on the culled list "
+              f"{out[name]['ms']:.3f} ms ({rows[1]} rows read, bound "
+              f"{bnds[1]['bound_ms']:.4f} ms, {bnds[1]['bound_by']}) against "
+              f"the rectangle list {out[name]['rect_ms']:.3f} ms ({rows[0]} "
+              f"rows, bound {bnds[0]['bound_ms']:.4f} ms), turns "
+              f"{[round(x, 3) for x in ms[key][0] + ms[key][1]]} "
+              f"(off, off, on, on); vs plain max_abs_err "
+              f"{out[name]['max_abs_err']:.3e}", flush=True)
+    out["composite_fwd"]["bits_equal_rect"] = fwd_bits
+    out["composite_fwd"]["n_contrib_mismatch"] = mismatch
+    return out
+
+
+def row_cull_phase(g, cam, gt, cfg, rng):
+    """Phase 5b. Returns (the culled calls' launches, the kernels' numbers
+    on the culled list)."""
+    dev = gt.device
+    ccfg = culled(cfg)
+    opt = OptimizationConfig()
+    bg = torch.zeros(3, device=dev)
+    with torch.no_grad():
+        e0 = rasterize.build_entries(g, cam, W, H, cfg)
+        e1 = rasterize.build_entries(g, cam, W, H, ccfg)
+    for e in (e0, e1):
+        check(int(e.binning.overflow) == 0, "row_cull phase overflow")
+    n_rect, n_cull, n_drop, margin = check_cull_exact(
+        "training frame", e0, e1, cfg)
+    check(int(e0.binning.num_pairs) == n_rect
+          and int(e1.binning.num_pairs) == n_cull, "row_cull pair counts")
+    numbers = cull_kernels(e0, e1, cfg, rng)
+    del e0, e1
+
+    # the image and the step's gradients, off against on
+    with torch.no_grad():
+        r0 = rasterize.render(g, cam, W, H, bg, cfg)
+        r1 = rasterize.render(g, cam, W, H, bg, ccfg)
+    img_bits = (torch.equal(r0.image, r1.image)
+                and torch.equal(r0.invdepth, r1.invdepth))
+    img_err = max(float((r0.image - r1.image).abs().max()),
+                  float((r0.invdepth - r1.invdepth).abs().max()))
+    check(torch.allclose(r1.image, r0.image, **IMG_TOL)
+          and torch.allclose(r1.invdepth, r0.invdepth, **IMG_TOL),
+          f"row_cull image {img_err} from the rectangle render's")
+    state = trainer.init_state(g, 1)
+    with deterministic():
+        _, want, want_tap, _ = single_loss_grads(
+            g, state.exposure, cam, gt, bg, cfg, opt)
+        _, got, got_tap, _ = single_loss_grads(
+            g, state.exposure, cam, gt, bg, ccfg, opt)
+    got, want = dict(got, tap=got_tap), dict(want, tap=want_tap)
+    grad_bits = all(torch.equal(got[k], want[k]) for k in want)
+    grad_err = {k: float((got[k] - want[k]).abs().max()) for k in want}
+    for k in want:
+        check(torch.allclose(got[k], want[k], **GRAD_TOL),
+              f"row_cull gradient of {k} differs by {grad_err[k]}")
+
+    # frames and steps in turns, the culled ones' launches counted
+    culled_calls = LaunchDelta()
+    ms = {"frame": ([], []), "step": ([], [])}
+    for i in (0, 1, 1, 0) * CULL_ROUNDS:
+        c = (cfg, ccfg)[i]
+        with contextlib.ExitStack() as stack:
+            if i:
+                stack.enter_context(culled_calls)
+            with torch.no_grad():
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = rasterize.render(g, cam, W, H, bg, c)
+                torch.cuda.synchronize()
+                ms["frame"][i].append((time.perf_counter() - t) * 1e3)
+            check(int(out.overflow) == 0, "row_cull frame overflow")
+            t = time.perf_counter()
+            _, aux = train(state, cam, gt, c, opt)
+            torch.cuda.synchronize()
+            ms["step"][i].append((time.perf_counter() - t) * 1e3)
+            check(int(aux.overflow) == 0 and np.isfinite(float(aux.loss)),
+                  "row_cull step")
+    n = 2 * CULL_ROUNDS
+    want = {name: k["per_step"] * n for name, k in KERNELS.items()}
+    want["composite_fwd"] += n                  # the frames
+    check(culled_calls.total == want, f"{n} culled frames and {n} culled "
+          f"steps launched {culled_calls.total}, expected {want}")
+    busy = {}
+    for i, c in ((0, cfg), (1, ccfg)):
+        tag = ("off", "on")[i]
+
+        def frame():
+            with torch.no_grad():
+                rasterize.render(g, cam, W, H, bg, c)
+        busy[f"frame {tag}"] = profile_call(f"one frame, row_cull {tag}",
+                                            frame)
+        busy[f"step {tag}"] = profile_call(
+            f"one train step, row_cull {tag}",
+            lambda: train(state, cam, gt, c, opt), n_top=15)
+    med = {k: [float(np.median(v[0])), float(np.median(v[1]))]
+           for k, v in ms.items()}
+    print(f"row_cull {W}x{H}, {N_GAUSS} gaussians, SH 3 (phase 5's scene): "
+          f"pairs {n_rect} -> {n_cull} ({n_cull / n_rect:.4f}; {n_drop} "
+          f"dropped, every one a subset pair below the alpha floor at every "
+          f"pixel of its tile, smallest margin q - t_cut {margin:.3e}); "
+          f"image {'bit for bit' if img_bits else 'not bit for bit'} the "
+          f"rectangle render's (max {img_err:.3e}); the forward kernel's "
+          f"outputs {'bit for bit' if numbers['composite_fwd']['bits_equal_rect'] else 'not bit for bit'} "
+          f"on the two lists; step gradients (deterministic algorithms) "
+          f"{'bit for bit' if grad_bits else 'within rtol 5e-3 / atol 1e-6'}"
+          f" (max {max(grad_err.values()):.3e}); host-clock median frame ms "
+          f"off / on {med['frame'][0]:.3f} / {med['frame'][1]:.3f}, step ms "
+          f"{med['step'][0]:.3f} / {med['step'][1]:.3f} (turns off, on, on, "
+          f"off x {CULL_ROUNDS}); device busy ms frame "
+          f"{busy['frame off']:.3f} / {busy['frame on']:.3f}, step "
+          f"{busy['step off']:.3f} / {busy['step on']:.3f}; launches of the "
+          f"culled calls {culled_calls.total}", flush=True)
+    return culled_calls.total, numbers
+
+
+def row_cull_split_phase(state, cam, gt, cfg, scfg, m_cap):
+    """Phase 7b: one culled frame of the slab, band and three sharded
+    paths against the single culled render at phases 6-7's gates, and one
+    culled ring step; ``slab_tmit`` on a culled slab and the scan on the
+    culled step's presort rows against their plain versions. Returns the
+    counted calls' launches."""
+    dev = gt.device
+    g = state.gaussians
+    ccfg, cscfg = culled(cfg), culled(scfg)
+    bg = torch.zeros(3, device=dev)
+    ones = torch.ones((1, H, W), device=dev)
+    zeros = torch.zeros((1, H, W), device=dev)
+    kw = dict(image_width=W, image_height=H)
+    with torch.no_grad():
+        single = rasterize.render(g, cam, W, H, bg, ccfg)
+        slabs = prim_shard.build_slab_entries(g, cam, W, H, ccfg,
+                                              n_slabs=N_SLABS, m_cap=m_cap)
+        e = slabs[0]
+        tkw = dict(n_tiles_x=e.n_tiles_x, n_tiles_y=e.n_tiles_y,
+                   tile_h=ccfg.tile_h, tile_w=ccfg.tile_w, chunk=ccfg.chunk,
+                   alpha_min=ccfg.alpha_min, alpha_max=ccfg.alpha_max)
+        args = (e.entries, e.binning.tile_start, e.binning.tile_count)
+        t_k = slab_transmittance_cuda(*args, **tkw)
+        t_p = slab_transmittance_plain(*args, **tkw)
+    tmit_err = float((t_k - t_p).abs().max())
+    check(torch.allclose(t_k, t_p, **SLAB_TOL),
+          f"slab_tmit on a culled slab is {tmit_err} from its plain version")
+    del slabs, e, args, t_k, t_p
+
+    scans = []
+    cumsum = rasterize.blocked_cumsum_16
+
+    def captured(x, L):
+        scans.append(x.clone())
+        return cumsum(x, L)
+
+    reset_launches()
+    errs = {}
+    with torch.no_grad():
+        img, inv, ovf = prim_shard.render_prim_sharded(
+            g, cam, W, H, bg, ccfg, n_slabs=N_SLABS, m_cap=m_cap)
+        check(int(ovf) == 0, "culled slab overflow")
+        errs["slab"] = max(float((img - single.image).abs().max()),
+                           float((inv - single.invdepth).abs().max()))
+        check(errs["slab"] <= 1e-3, f"culled slab render {errs['slab']} from "
+              f"the single culled render")
+        img, inv, _, ovf = tile_shard.render_tile_sharded(
+            g, cam, W, H, bg, ccfg, n_bands=N_BANDS)
+        check(int(ovf) == 0, "culled band overflow")
+        for a, b in ((img, single.image), (inv, single.invdepth)):
+            check(torch.allclose(a, b, **SLAB_TOL), "culled band render "
+                  f"{float((a - b).abs().max())} from the single culled one")
+        errs["band"] = float((img - single.image).abs().max())
+        for tr in sharded.TRANSIENTS:
+            out = sharded.make_sharded_render(N_SHARDS, cfg=cscfg,
+                                              transient=tr, **kw)(g, cam, bg)
+            check(int(out.overflow) == 0, f"culled {tr} overflow")
+            for a, b in ((out.image, single.image),
+                         (out.invdepth, single.invdepth)):
+                check(torch.allclose(a, b, **SHARD_IMG_TOL),
+                      f"culled {tr} render {float((a - b).abs().max())} "
+                      f"from the single culled render")
+            errs[tr] = float((out.image - single.image).abs().max())
+    step = sharded.make_sharded_train_step(
+        N_SHARDS, opt=OptimizationConfig(), rcfg=cscfg, spatial_lr_scale=1.0,
+        transient="ring", **kw)
+    rasterize.blocked_cumsum_16 = captured
+    try:
+        _, aux = step(state, cam, gt, ones, zeros, zeros, bg)
+        torch.cuda.synchronize()
+    finally:
+        rasterize.blocked_cumsum_16 = cumsum
+    check(int(aux.overflow) == 0 and np.isfinite(float(aux.loss)),
+          "culled ring step")
+    launches = read_launches()
+    want = {name: k["per_slab_render"] + k["per_band_render"]
+            + 3 * k["per_sharded_step"] for name, k in KERNELS.items()}
+    for name in BACKWARD_ONLY + LOSS_ONLY:
+        want[name] = 0
+    want = {name: want[name] + KERNELS[name]["per_sharded_step"]
+            for name in KERNELS}
+    check(launches == want, f"culled split paths launched {launches}, "
+          f"expected {want}")
+    # the scan kernel on the culled step's presort rows of shard 0
+    x = scans[0]
+    L = SCAN_BLOCK
+    intra, _ = blocked_cumsum_16_cuda(x, L)
+    plain, _ = blocked_cumsum_16_plain(x, L)
+    ref = torch.cumsum(x.double().reshape(-1, L, 16), dim=1).reshape(-1, 16)
+    scan_err = float((intra.double() - ref).abs().max())
+    lib_err = float((plain.double() - ref).abs().max())
+    check(scan_err <= 2 * lib_err, f"scan on the culled step's rows is "
+          f"{scan_err} from float64, torch.cumsum {lib_err}")
+    print(f"row_cull split paths on phase 5's scene: max |image - single "
+          f"culled render| slab {errs['slab']:.3e}, band {errs['band']:.3e}, "
+          f"sharded " + ", ".join(f"{tr} {errs[tr]:.3e}"
+                                  for tr in sharded.TRANSIENTS)
+          + f"; one culled ring step, loss {float(aux.loss):.6f}; slab_tmit "
+          f"on culled slab 0 vs plain {tmit_err:.3e}; scan on the step's "
+          f"{x.shape[0]} presort rows of shard 0: {scan_err:.3e} from "
+          f"float64 (torch.cumsum {lib_err:.3e}); launches {launches}",
+          flush=True)
+    return launches, dict(slab_tmit=dict(row_cull_max_abs_err=tmit_err),
+                          scan=dict(row_cull_max_abs_err=scan_err))
+
+
 # ---------------------------------------------------------------- phase 8
 # The training loop (train/loop.py) on a COLMAP scene of bench.py's cloud:
 # run A trains LOOP_ITERS iterations through LOOP_DENSIFY events, an opacity
@@ -1748,6 +2124,134 @@ def states_equal(a, b):
     from gsplat_tpu_torch.train.checkpoint import state_items
     return all(n1 == n2 and x.dtype == y.dtype and np.array_equal(x, y)
                for (n1, x), (n2, y) in zip(state_items(a), state_items(b)))
+
+
+DEPTH_IMAGES = 4           # cameras of phase 8's scene given inverse depths
+DEPTH_TRACK = 20_000       # points in each of their tracks
+DEPTH_SCALE_TOL = 1e-3     # the fit against the truth: scale relative,
+#                            offset absolute (16-bit quantisation ~1e-5)
+
+
+def native_loader_phase(dev, src):
+    """Phase 8's scene read twice into a Scene: through the native loader
+    (when it builds) and with ``GSPLAT_NATIVE_LOADER=0`` (PIL); the decoded
+    images held to PIL's within 1e-6 (tests/test_scene.py:283, the source
+    size). Returns the line's numbers."""
+    from gsplat_tpu_torch import native
+    from gsplat_tpu_torch.config import ModelConfig
+    from gsplat_tpu_torch.scene import Scene
+    cfg = ModelConfig(source_path=src, model_path="", sh_degree=3,
+                      resolution=1, eval=True)
+
+    def init():
+        t = time.perf_counter()
+        scene = Scene(cfg, 3, capacity=0, device=dev)
+        torch.cuda.synchronize()
+        cams = scene.getTrainCameras() + scene.getTestCameras()
+        return ({c.image_name: c.image for c in cams},
+                (time.perf_counter() - t) * 1e3)
+
+    built = native.available()
+    if built:
+        how = "built"
+    elif native.build_error:
+        how = ("did not build: "
+               + native.build_error.strip().splitlines()[0][:200])
+    else:
+        how = ("not used (GSPLAT_NATIVE_LOADER="
+               f"{os.environ.get('GSPLAT_NATIVE_LOADER')!r}, library "
+               f"{native.library_path()} "
+               f"{'present' if native.library_path().exists() else 'absent'})")
+    imgs_native, ms_native = init()
+    os.environ["GSPLAT_NATIVE_LOADER"] = "0"
+    try:
+        imgs_pil, ms_pil = init()
+    finally:
+        del os.environ["GSPLAT_NATIVE_LOADER"]
+    check(set(imgs_native) == set(imgs_pil), "the scenes' images")
+    err = max(float(np.abs(imgs_native[k] - imgs_pil[k]).max())
+              for k in imgs_pil)
+    if built:
+        check(err <= 1e-6, f"the native loader's images are {err} from PIL's")
+    print(f"native loader: {how}; Scene init of phase 8's scene "
+          f"({len(imgs_pil)} images {W}x{H}, {N_GAUSS} points) "
+          f"{ms_native:.1f} ms with it, {ms_pil:.1f} ms with "
+          f"GSPLAT_NATIVE_LOADER=0 (PIL); images max |native - PIL| "
+          f"{err:.3e}", flush=True)
+    return dict(built=built, ms=ms_native, pil_ms=ms_pil, err=err)
+
+
+def depth_scale_phase(src, root):
+    """make_depth_scale_torch.py on phase 8's scene: DEPTH_IMAGES of its
+    cameras get a track of up to DEPTH_TRACK of the points they see, one a
+    pixel, each keypoint on its pixel's corner (where the tool's bilinear
+    sample is that pixel), and a 16-bit inverse-depth PNG of s / z + o (per
+    image s, o from the seed) filled by nearest neighbour; the fitted scale
+    and offset against the truth, 1 / s and -o / s."""
+    import subprocess as sp
+    import sys
+
+    from PIL import Image
+    from scipy.spatial import cKDTree
+
+    from gsplat_tpu_torch.scene import colmap
+    sparse = os.path.join(src, "sparse", "0")
+    cams, imgs, _ = colmap.read_model(sparse)
+    ids, xyz, rgb, err = colmap.read_points3d_full(
+        os.path.join(sparse, "points3D.bin"),
+        os.path.join(sparse, "points3D.txt"))
+    base = os.path.join(root, "depth_scene")
+    maps = os.path.join(root, "depth_maps")
+    os.makedirs(maps, exist_ok=True)
+    rng = np.random.default_rng(SEED + 12)
+    truth, t0 = {}, time.perf_counter()
+    gy, gx = np.mgrid[0:H, 0:W]
+    pix = np.stack([gx.ravel(), gy.ravel()], axis=1) + 0.0
+    for key in sorted(imgs)[:DEPTH_IMAGES]:
+        im = imgs[key]
+        fx, fy, cx, cy = cams[im.camera_id].params
+        pc = xyz @ colmap.qvec2rotmat(im.qvec).T + im.tvec
+        z = pc[:, 2]
+        u, v = fx * pc[:, 0] / z + cx, fy * pc[:, 1] / z + cy
+        seen = np.nonzero((z > 0.1) & (u >= 0) & (u < W - 0.5) & (v >= 0)
+                          & (v < H - 0.5))[0]
+        px = np.rint(u[seen]) + W * np.rint(v[seen])
+        seen = seen[np.unique(px, return_index=True)[1]]     # one a pixel
+        sel = np.sort(rng.choice(seen, min(DEPTH_TRACK, len(seen)),
+                                 replace=False))
+        s, o = rng.uniform(1.5, 3.0), rng.uniform(0.02, 0.1)
+        xys = np.stack([np.rint(u[sel]), np.rint(v[sel])], axis=1)
+        _, j = cKDTree(xys).query(pix, workers=-1)
+        dense = (s / z[sel] + o)[j].reshape(H, W)
+        Image.fromarray(np.clip(dense * 2 ** 16, 0, 2 ** 16 - 1).astype(
+            np.uint16)).save(os.path.join(
+                maps, os.path.splitext(im.name)[0] + ".png"))
+        imgs[key] = dataclasses.replace(im, xys=xys, point3D_ids=ids[sel])
+        truth[os.path.splitext(im.name)[0]] = (1.0 / s, -o / s)
+    colmap.write_model(cams, imgs, (ids, xyz, rgb, err),
+                       os.path.join(base, "sparse", "0"))
+    made_s = time.perf_counter() - t0
+    t = time.perf_counter()
+    sp.run([sys.executable, os.path.join(REPO, "make_depth_scale_torch.py"),
+            "--base_dir", base, "--depths_dir", maps], check=True,
+           capture_output=True, text=True, timeout=600)
+    tool_s = time.perf_counter() - t
+    with open(os.path.join(base, "sparse", "0", "depth_params.json")) as f:
+        got = json.load(f)
+    check(set(got) == set(truth), f"depth_params.json holds {sorted(got)}, "
+          f"expected {sorted(truth)}")
+    rel = {k: abs(got[k]["scale"] / truth[k][0] - 1) for k in truth}
+    off = {k: abs(got[k]["offset"] - truth[k][1]) for k in truth}
+    check(max(rel.values()) <= DEPTH_SCALE_TOL
+          and max(off.values()) <= DEPTH_SCALE_TOL, f"depth scales {got} "
+          f"against the truth {truth}: scale errors {rel}, offset {off}")
+    print(f"depth-scale CLI (make_depth_scale_torch.py) on phase 8's scene, "
+          f"{DEPTH_IMAGES} images with {DEPTH_TRACK}-point tracks and 16-bit "
+          f"inverse depths (made in {made_s:.2f} s): {tool_s:.2f} s; scale "
+          f"relative error max {max(rel.values()):.3e}, offset absolute "
+          f"error max {max(off.values()):.3e} (gate {DEPTH_SCALE_TOL} each)",
+          flush=True)
+    return dict(rel=max(rel.values()), off=max(off.values()))
 
 
 def loop_phase(dev, root):
@@ -3282,6 +3786,122 @@ def sr_loop(spec, rank, dev):
     return out
 
 
+SR_BRIDGE_ITERS = 3
+
+
+def sr_bridge(spec, rank, dev):
+    """11e on this rank: train(..., shard_gaussians=True, ring) on phase
+    8's scene for SR_BRIDGE_ITERS iterations with rank 0's SIBR bridge,
+    under torch's deterministic algorithms. Rank 0's client pauses training
+    for a kernel-path and a python-path frame, then trains on one frame an
+    iteration. Every rank renders every frame (``network_gui.RankFrames``);
+    after each, the rows are gathered to rank 0's host, and rank 0 renders
+    the frame again from the whole state in this process: the sharded
+    render over a local list of the shards (held bit for bit) and
+    ``render`` (within 1 in uint8). Those renders' launches are not
+    counted."""
+    import contextlib as ctx
+    import random
+    import sys
+
+    from gsplat_tpu_torch.config import ModelConfig, PipelineConfig
+    from gsplat_tpu_torch.parallel import RankParts
+    from gsplat_tpu_torch.parallel import mesh as mesh_lib
+    from gsplat_tpu_torch.parallel import rows as rows_lib
+    from gsplat_tpu_torch.train import loop
+    from gsplat_tpu_torch.viewer import network_gui
+    parts = RankParts(mesh_lib.make_mesh((("prim", -1),)), "prim")
+    hold = mesh_lib.Hold()
+    render_request = network_gui.render_request
+    served, frame_ms = [], []
+
+    def recorded(state, req, rcfg, pipe, bg, device, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        img = render_request(state, req, rcfg, pipe, bg, device, **kw)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t) * 1e3)
+        counts = read_launches()
+        whole = rows_lib.gather_to_host(state, parts, hold.group)
+        if whole is not None:
+            whole = trainer.to_device(whole, device)
+            local = render_request(whole, req, rcfg, pipe, bg, device,
+                                   parts=parts.n,
+                                   transient=kw["transient"])
+            single = render_request(whole, req, rcfg, pipe, bg, device)
+            a, b, c = (np.asarray(network_gui.frame_bytes(x))
+                       for x in (img, local, single))
+            served.append(dict(frame=a, local=bool(np.array_equal(a, b)),
+                               single=int(np.abs(a.astype(int)
+                                                 - c.astype(int)).max()),
+                               sh_python=req.sh_python))
+        for name, k in KERNELS.items():
+            k["wrapper"].launches = counts[name]
+        return img
+
+    gui = client = None
+    if rank == 0:
+        gui = network_gui.NetworkGUI("127.0.0.1", 0, device=dev)
+        cv, fovx, fovy = loop_test_view(dev)
+        p = bridge_payload(cv, fovx, fovy)
+        client = start_client(gui, [
+            p, dict(p, shs_python=True, rot_scale_python=True,
+                    scaling_modifier=0.9)]
+            + [dict(p, train=True)] * SR_BRIDGE_ITERS)
+    network_gui.render_request = recorded
+    tee = Tee(sys.stdout)
+    reset_launches()
+    try:
+        random.seed(0)
+        t = time.perf_counter()
+        with deterministic(), ctx.redirect_stdout(tee):
+            loop.train(
+                ModelConfig(source_path=spec["src"],
+                            model_path=spec["bridge_model"], sh_degree=3,
+                            resolution=1, eval=True),
+                OptimizationConfig(iterations=SR_BRIDGE_ITERS),
+                PipelineConfig(), RasterizerConfig(), [], [], [],
+                quiet=True, shard_gaussians=True, shard_transient="ring",
+                capacity_multiplier=1.0, device=dev, network_gui_server=gui)
+            torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t
+    finally:
+        network_gui.render_request = render_request
+        if gui is not None:
+            client[0].join(timeout=60)
+            gui.close()
+    launches = read_launches()
+    n_frames = 2 + SR_BRIDGE_ITERS
+    steps = SR_BRIDGE_ITERS + tee.count("retrying frame")
+    want = expected_loop_launches(steps, n_frames, sharded_shards=1)
+    check(launches == want, f"rank {rank}: the loop under the bridge "
+          f"launched {launches}, expected {want}")
+    check(len(frame_ms) == n_frames, f"rank {rank} rendered {len(frame_ms)} "
+          f"bridge frames, expected {n_frames}")
+    out = dict(bridge_launches=launches, bridge_ms=frame_ms,
+               bridge_s=loop_s)
+    if rank == 0:
+        _, frames, errors = client
+        check(not errors and len(frames) == n_frames,
+              f"11e: the client got {len(frames)} frames, errors {errors}")
+        check(all(np.array_equal(f, s["frame"])
+                  for f, s in zip(frames, served)),
+              "11e: the client's frames are not the ones rendered")
+        check(all(s["local"] for s in served), "11e: a bridge frame over "
+              "ranks differs from the one-process sharded render's")
+        check(max(s["single"] for s in served) <= 1, "11e: a bridge frame "
+              "over ranks is more than 1 from render's")
+        check(all(float(f.std()) > 0 for f in frames), "11e: blank frame")
+        check([s["sh_python"] for s in served[:2]] == [False, True],
+              "11e: the python-path frame")
+        out["bridge_single_max"] = max(s["single"] for s in served)
+    print(f"11e rank {rank}: {SR_BRIDGE_ITERS} iterations under the bridge "
+          f"in {loop_s:.2f} s, bridge frame ms "
+          f"{[round(x, 1) for x in frame_ms]}, launches {launches}",
+          flush=True)
+    return out
+
+
 def join_ranks(spec_path, n_ranks):
     """A rank of phase 11 joins its group: gloo on the card the ranks
     share (``device`` cuda:0), or, under ``--nccl``, NCCL on its own card
@@ -3304,11 +3924,12 @@ def join_ranks(spec_path, n_ranks):
 
 
 def shard_rank_main(spec_path):
-    """One rank of 11a, 11b and 11d (or of the spec's ``jobs`` of them),
-    prints one ``SRRESULT`` JSON line."""
+    """One rank of 11a, 11b, 11d and 11e (or of the spec's ``jobs`` of
+    them), prints one ``SRRESULT`` JSON line."""
     import torch.distributed as dist
     spec, rank, dev = join_ranks(spec_path, SR_RANKS)
-    jobs = dict(split=sr_split, storage=sr_storage, loop=sr_loop)
+    jobs = dict(split=sr_split, storage=sr_storage, loop=sr_loop,
+                bridge=sr_bridge)
     out = {}
     try:
         for name in spec.get("jobs", list(jobs)):
@@ -3432,13 +4053,14 @@ def hold_loop_ranks(results, one, model_ranks, label):
 
 
 def shard_ranks_phase(prep, src, root, n_eval):
-    """11a, 11b, 11d: SR_RANKS processes of this script sharing the card
-    over gloo; their gates against this process's forms. Returns rank 0's
-    launch counts of 11a, 11b and 11d."""
+    """11a, 11b, 11d, 11e: SR_RANKS processes of this script sharing the
+    card over gloo; their gates against this process's forms. Returns rank
+    0's launch counts of 11a, 11b, 11d and 11e."""
     model_ranks = os.path.join(root, "loop_ranks")
     one = one_process_shard_loop(src, root)
     one_s, one_cap, one_ms = one["s"], one["cap"], one["ms"]
     spec = dict(prep, src=src, root=root, loop_model=model_ranks,
+                bridge_model=os.path.join(root, "loop_ranks_bridge"),
                 device=RANK_DEVICE, n_eval=n_eval)
     results, wall_s = run_ranks(SR_RANKS, "--shard-rank", spec, SR_TIMEOUT,
                                 "11a/11b/11d", "SRRESULT")
@@ -3467,10 +4089,21 @@ def shard_ranks_phase(prep, src, root, n_eval):
           f"{[r['loop_rows'] for r in results]}"
           f", loop peak GB {[round(r['loop_peak'], 2) for r in results]}; "
           f"all ranks in {wall_s:.1f} s", flush=True)
+    print(f"bridge under rank-sharded storage (11e), {SR_RANKS} ranks "
+          f"sharing the card over gloo, ring, {W}x{H}: every rank rendered "
+          f"each of the client's {2 + SR_BRIDGE_ITERS} frames, each bit for "
+          f"bit the one-process {SR_RANKS}-shard sharded render of the "
+          f"gathered state and within {r0['bridge_single_max']} in uint8 of "
+          f"render's; bridge frame ms by rank "
+          f"{[[round(x, 1) for x in r['bridge_ms']] for r in results]} "
+          f"(median {np.median(r0['bridge_ms']):.3f} on rank 0), "
+          f"{SR_BRIDGE_ITERS} iterations in {r0['bridge_s']:.2f} s, launches "
+          f"{r0['bridge_launches']}", flush=True)
     split = {k: r0["slab_fwd_launches"][k] + r0["slab_fb_launches"][k]
              + r0["band_fwd_launches"][k] + r0["band_fb_launches"][k]
              for k in KERNELS}
-    return r0["launches"], split, r0["loop_launches"]
+    return (r0["launches"], split, r0["loop_launches"],
+            r0["bridge_launches"])
 
 
 def two_d_phase(src, root, backend="gloo"):
@@ -3700,6 +4333,12 @@ def main():
                  lambda: train(state, tcam, tgt, tcfg, OptimizationConfig()),
                  n_top=15)
 
+    # ---- phase 5b: row culling off and on, on phase 5's scene
+    cull_launches, cull_numbers = row_cull_phase(
+        tg, tcam, tgt, tcfg, np.random.default_rng(SEED + 11))
+    for name, extra in cull_numbers.items():
+        numbers[name]["row_cull"] = extra
+
     # ---- phase 6: the slab and band paths at full width
     slab_launches, band_launches = slab_phase(state.gaussians, cams, tcam,
                                               tgt, tcfg, m_cap, pairs)
@@ -3708,10 +4347,18 @@ def main():
     sharded_launches = sharded_phase(state, cams, tcam, tgt, tcfg, scfg,
                                      m_loc, shard_pairs)
 
+    # ---- phase 7b: the culled split and sharded paths, one frame each
+    split_cull_launches, split_cull_numbers = row_cull_split_phase(
+        state, tcam, tgt, tcfg, scfg, m_cap)
+    for name, extra in split_cull_numbers.items():
+        numbers[name]["row_cull"] = extra
+
     # ---- phase 8: the training loop at full width, then sharded
     del state
     loop_counts, loop_sharded_launches, run_a = loop_phase(
         dev, os.path.join(REPO, "build", "chip_smoke"))
+    native_loader_phase(dev, run_a["src"])
+    depth_scale_phase(run_a["src"], os.path.join(REPO, "build", "chip_smoke"))
 
     # ---- phase 9: evaluation and viewing on run A's model
     n_eval = run_a.pop("n_eval")      # renders of one evaluation
@@ -3730,8 +4377,9 @@ def main():
     root = os.path.join(REPO, "build", "chip_smoke")
     prep = shard_ranks_prep(tg, tcam, tgt, tcfg, cams, root)
     torch.cuda.empty_cache()
-    shard_launches, split_launches, loop_rank_launches = shard_ranks_phase(
-        prep, run_a["src"], root, n_eval=n_eval)
+    (shard_launches, split_launches, loop_rank_launches,
+     bridge_rank_launches) = shard_ranks_phase(prep, run_a["src"], root,
+                                               n_eval=n_eval)
     dp_2d_launches = two_d_phase(run_a["src"], root)
 
     kernels = []
@@ -3749,7 +4397,10 @@ def main():
                    "dp_2d": dp_2d_launches[name],
                    "shard_ranks": shard_launches[name],
                    "split_ranks": split_launches[name],
-                   "loop_ranks": loop_rank_launches[name]}
+                   "loop_ranks": loop_rank_launches[name],
+                   "row_cull": cull_launches[name],
+                   "split_cull": split_cull_launches[name],
+                   "bridge_ranks": bridge_rank_launches[name]}
         check(any(by_path.values()), f"{name} was launched on no path")
         n = numbers[name]
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"):

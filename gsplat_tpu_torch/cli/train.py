@@ -14,10 +14,11 @@ Several cards run one process per card:
 
 Each rank joins the process group first (``parallel/mesh.py``) and trains
 on ``cuda:LOCAL_RANK`` (``--device cpu``: gloo on the CPU); rank 0 alone
-writes the model directory and binds the viewer bridge (not under
-rank-sharded storage), and the other ranks wait for it while its client
-keeps training paused (``train/loop.py``). ``--shards`` is the
-one-process form and raises under torchrun."""
+writes the model directory and binds the viewer bridge, and the other
+ranks wait for it while its client keeps training paused, or under
+rank-sharded storage render its client's frames with it
+(``train/loop.py``). ``--shards`` is the one-process form and raises under
+torchrun."""
 from __future__ import annotations
 
 import dataclasses
@@ -110,11 +111,7 @@ def main(argv=None):
     if args.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)
     server = None
-    if args.shard_gaussians and n_ranks > 1 and not args.disable_viewer:
-        if rank == 0:
-            print("viewer bridge disabled: not served under rank-sharded "
-                  "storage")
-    elif not args.disable_viewer and rank == 0:
+    if not args.disable_viewer and rank == 0:
         from gsplat_tpu_torch.viewer.network_gui import NetworkGUI
         try:
             server = NetworkGUI(args.ip, args.port, device=device)

@@ -85,6 +85,22 @@ class RasterizerConfig:
     tile_h: int = 32
     tile_w: int = 32
     pairs_per_gaussian: float = 12.0   # m_cap = ceil(cap * this / chunk) * chunk
+    # Per-tile-row ellipse culling (ops/binning.py): each gaussian expands
+    # to its level-set ellipse's exact x-interval per tile row instead of
+    # its whole bounding rectangle. Conservative, since the compositor's
+    # alpha_min test zeroes every dropped pair, so images agree (up to the
+    # regrouping of the chunked transmittance products) while the pair
+    # count shrinks. Off by default: on bench.py's 1080p / 200k scene on an
+    # NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 5b) it drops 7.9%
+    # of the pairs and saves 2-3% of each compositor kernel, but the culled
+    # binning costs more: device busy 3.587 -> 4.100 ms a frame, 9.469 ->
+    # 10.121 ms a step. Worth it only for scenes of large, anisotropic
+    # splats, whose rectangles overshoot their ellipses most.
+    row_cull: bool = False
+    # Static slots per gaussian of the culled expansion: row_slots - 1
+    # single tile rows and one tail block over the remaining rows (culled
+    # jointly). Tightness against dense work; no slot overflows.
+    row_slots: int = 4
     pad_cap: int = -1                  # alignment padding budget; -1 = chunk * tiles
     chunk: int = 64
     # The JAX package selects between two TPU kernel forms with these; the
@@ -105,6 +121,9 @@ class RasterizerConfig:
         if self.moments not in MOMENTS:
             raise ValueError(f"moments must be one of {MOMENTS}, "
                              f"got {self.moments!r}")
+        if self.row_slots < 1:
+            raise ValueError(f"row_slots must be at least 1 (the tail "
+                             f"block), got {self.row_slots}")
 
 
 def _add_dataclass_args(parser: argparse.ArgumentParser, dc_type):

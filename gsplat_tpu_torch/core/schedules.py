@@ -27,3 +27,12 @@ def expon_lr(step, lr_init: float, lr_final: float, lr_delay_steps: int = 0,
     log_lerp = np.exp(np.log(f32(lr_init)) * (f32(1) - t)
                       + np.log(f32(lr_final)) * t)
     return 0.0 if s < 0 else float(f32(delay_rate * log_lerp))
+
+
+def make_expon_lr_fn(lr_init, lr_final, lr_delay_steps=0, lr_delay_mult=1.0,
+                     max_steps=1_000_000):
+    """``expon_lr`` with its constants bound: fn(step) -> float."""
+    def fn(step):
+        return expon_lr(step, lr_init, lr_final, lr_delay_steps, lr_delay_mult,
+                        max_steps)
+    return fn

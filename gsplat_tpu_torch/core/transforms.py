@@ -64,6 +64,11 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     return R.reshape(q.shape[:-1] + (3, 3))
 
 
+def build_scaling_rotation(s: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """L = R · diag(s), batched: [...,3], [...,4] → [...,3,3]."""
+    return quat_to_rotmat(q) * s[..., None, :]
+
+
 def covariance_from_scaling_rotation(scaling: torch.Tensor, scaling_modifier,
                                      rotation: torch.Tensor) -> torch.Tensor:
     """3D covariance Σ = L Lᵀ with L = R·diag(s), packed as symmetric-6
@@ -79,6 +84,16 @@ def covariance_from_scaling_rotation(scaling: torch.Tensor, scaling_modifier,
 
     return torch.stack([c(0, 0), c(0, 1), c(0, 2),
                         c(1, 1), c(1, 2), c(2, 2)], dim=-1)
+
+
+def cov6_to_mat(cov6: torch.Tensor) -> torch.Tensor:
+    """Unpack symmetric-6 (xx,xy,xz,yy,yz,zz) → full 3x3."""
+    xx, xy, xz, yy, yz, zz = (cov6[..., i] for i in range(6))
+    return torch.stack([
+        torch.stack([xx, xy, xz], -1),
+        torch.stack([xy, yy, yz], -1),
+        torch.stack([xz, yz, zz], -1),
+    ], dim=-2)
 
 
 def inverse_sigmoid(x):

@@ -1,7 +1,8 @@
 """Tile binning: (tile, gaussian) pair expansion, depth-ordered per tile,
 laid out chunk-aligned. Counterpart of the path gsplat_tpu/ops/binning.py
 ``bin_gaussians`` takes for ``render`` (``sort_gaussians=True``,
-``align=chunk``, rect expansion, no row culling), plus ``chunk_tables``.
+``align=chunk``, rect expansion or per-tile-row ellipse culling), plus
+``chunk_tables``.
 
 The JAX package builds the expansion from scatters and int32 cumsums that
 wrap on purpose, because gathers are slow on the TPU. Here the plain
@@ -22,7 +23,20 @@ transient): each owner's slab of geometry is expanded by itself into
 (tile, depth bits, storage row) entries at a per-slab capacity, and one
 stable sort of the concatenated lists by (tile, depth bits) gives the
 global order, so that no depth permutation of all the gaussians is ever
-made. Rect expansion only, as in ``bin_gaussians``.
+made.
+
+Row culling (``conic`` and ``t_cut``, the config's ``row_cull``): the
+expansion units become R = ``row_slots`` static slots per gaussian, R−1
+single tile rows at the level-set ellipse's exact x-interval for that row
+(``_slot_x_interval``) and one tail block over the remaining rows at the
+interval of their joint span. A gaussian's slots are contiguous in unit
+order, so its pairs stay contiguous in presort order, which the
+prefix-difference gather gradient reads (``g_offsets`` / ``g_counts``).
+The culled pairs are a subset of the rectangle's, and every dropped pair
+has alpha below ``alpha_min`` at every pixel of its tile, so the
+compositor, which skips such pairs, renders the same image up to the
+grouping of its per-chunk transmittance products. A slot's rows are found
+in the frame's pixel rows also on a window (``tile_row_base``).
 
 Overflow beyond ``m_cap`` (pairs) or ``pad_cap`` (alignment padding) is
 counted in ``overflow``; such a frame's content is garbage by contract
@@ -98,11 +112,11 @@ def _rect_counts(x0, y0, x1, y1, live, n_tiles_x: int, n_tiles_y: int):
 
 def _expand_slots(counts: torch.Tensor, x0, y0, w, n_tiles_x: int,
                   n_tiles: int, m: int):
-    """The gaussian-major pair list in ``m`` static slots: slot s holds the
-    k-th pair of gaussian g, offsets[g] <= s < offsets[g] + counts[g], which
-    covers the k-th tile of g's rectangle row by row. Returns (g, tile,
+    """The unit-major pair list in ``m`` static slots: slot s holds the
+    k-th pair of unit u, offsets[u] <= s < offsets[u] + counts[u], which
+    covers the k-th tile of u's rectangle row by row. Returns (u, tile,
     live); a dead slot (s >= the pair count) has live False, tile
-    ``n_tiles`` and g clamped into range."""
+    ``n_tiles`` and u clamped into range."""
     ends = torch.cumsum(counts, 0)
     s = torch.arange(m, device=counts.device)
     g = torch.searchsorted(ends, s, right=True)
@@ -114,13 +128,130 @@ def _expand_slots(counts: torch.Tensor, x0, y0, w, n_tiles_x: int,
     return g, torch.where(live, tile, n_tiles), live
 
 
+def _slot_x_interval(mu_x, mu_y, ca, cb, cc, t, y_top, n_px):
+    """The x-interval [u_lo, u_hi] (relative to mu_x, in pixels) where the
+    level-set ellipse {d : dᵀ·conic·d <= t} meets the pixel rows
+    y ∈ [y_top, y_top + n_px − 1] (one tile row, or a whole tail block),
+    in float32 and in the JAX package's order of operations.
+
+    q(u,v) = ca·u² + 2cb·uv + cc·v² is convex, so the set of u with
+    min over v in the span of q <= t is an interval: its right end is the
+    ellipse's x-extreme u_g = sqrt(t·cc/Δ) (Δ = ca·cc − cb², reached at
+    v = −cb·u_g/cc) when that v lies in the span, else the larger root of
+    q(u, v_edge) = t over the two edges; the left end mirrors it. The
+    span's continuous v-range and half a pixel on either side keep it
+    conservative. Returns (u_lo, u_hi, nonempty); an empty edge gives
+    ±3e38, which callers clip before any integer cast. Slots with
+    n_px <= 0 are the caller's to mask."""
+    v0 = y_top.to(torch.float32) - mu_y
+    v1 = v0 + (n_px.to(torch.float32) - 1.0)
+    det2 = torch.clamp(ca * cc - cb * cb, min=1e-12)
+    safe_ca = torch.clamp(ca, min=1e-12)
+    safe_cc = torch.clamp(cc, min=1e-12)
+    u_g = torch.sqrt(torch.clamp(t * safe_cc / det2, min=0.0))
+    v_at_right = -cb * u_g / safe_cc        # v of the +x extreme point
+    disc0 = t * safe_ca - det2 * v0 * v0
+    disc1 = t * safe_ca - det2 * v1 * v1
+    s0 = torch.sqrt(torch.clamp(disc0, min=0.0))
+    s1 = torch.sqrt(torch.clamp(disc1, min=0.0))
+    big = 3.0e38
+    hi0 = torch.where(disc0 >= 0, (-cb * v0 + s0) / safe_ca, -big)
+    hi1 = torch.where(disc1 >= 0, (-cb * v1 + s1) / safe_ca, -big)
+    lo0 = torch.where(disc0 >= 0, (-cb * v0 - s0) / safe_ca, big)
+    lo1 = torch.where(disc1 >= 0, (-cb * v1 - s1) / safe_ca, big)
+    right_interior = (v_at_right >= v0) & (v_at_right <= v1)
+    left_interior = (-v_at_right >= v0) & (-v_at_right <= v1)
+    u_hi = torch.where(right_interior, u_g, torch.maximum(hi0, hi1))
+    u_lo = torch.where(left_interior, -u_g, torch.minimum(lo0, lo1))
+    nonempty = (u_lo <= u_hi) & (t > 0.0)
+    return u_lo - 0.5, u_hi + 0.5, nonempty
+
+
+class UnitExpansion(NamedTuple):
+    """One expansion pass into ``m`` static slots (``_expand_units``): the
+    sort- and layout-independent half of binning, shared by
+    ``bin_gaussians`` and ``expand_slab``."""
+    g: torch.Tensor           # (m,) int64 gaussian of each slot (clamped)
+    tile: torch.Tensor        # (m,) int64; the sentinel n_tiles when dead
+    live: torch.Tensor        # (m,) bool: slot < total
+    counts: torch.Tensor      # (N,) int64 pairs of each gaussian
+    offsets: torch.Tensor     # (N,) int64 exclusive starts of each
+    total: torch.Tensor       # () int64 pairs, also those past m
+    count_grid: torch.Tensor  # (n_tiles_y, n_tiles_x) int64 pairs per tile
+
+
+def _expand_units(mean2d, radius, rx, ry, *, n_tiles_x: int, n_tiles_y: int,
+                  tile_h: int, tile_w: int, m: int, tile_row_base: int = 0,
+                  conic=None, t_cut=None, row_slots: int = 4
+                  ) -> UnitExpansion:
+    """Rectangles, or with ``conic`` and ``t_cut`` the culled slots, into
+    the gaussian-major pair list of ``m`` static slots and the per-tile
+    histogram of every pair. Units are the gaussians (rect expansion) or
+    their R = ``row_slots`` slots each: slots 0..R−2 one tile row each at
+    the ellipse's x-interval for that row, slot R−1 the tail block over the
+    rest, all cut to the rectangle's own tiles (the half-pixel margin must
+    not add a pair that rect binning lacks)."""
+    n = mean2d.shape[0]
+    n_tiles = n_tiles_x * n_tiles_y
+    x0, y0, x1, y1 = tile_rect(mean2d, rx, ry, n_tiles_x, n_tiles_y,
+                               tile_h, tile_w, tile_row_base)
+    valid_g = (radius > 0) & (rx > 0) & (ry > 0)
+    rect_w = torch.clamp(x1 - x0, min=0)
+    rect_h = torch.clamp(y1 - y0, min=0)
+    if conic is None:
+        R = 1
+        u_x0, u_y0 = x0, y0
+        u_w = torch.where(valid_g, rect_w, 0)
+        u_h = torch.where(valid_g, rect_h, 0)
+    else:
+        R = row_slots
+        rvec = torch.arange(R, device=mean2d.device)[None, :]     # (1,R)
+        h_u = torch.where(rvec < R - 1, (rvec < rect_h[:, None]).long(),
+                          torch.clamp(rect_h[:, None] - (R - 1), min=0))
+        ty0_u = y0[:, None] + rvec
+        # the slot's pixel rows in the frame, also on a window
+        u_lo, u_hi, nonempty = _slot_x_interval(
+            mean2d[:, 0:1], mean2d[:, 1:2], conic[:, 0:1], conic[:, 1:2],
+            conic[:, 2:3], t_cut[:, None], (ty0_u + tile_row_base) * tile_h,
+            h_u * tile_h)
+        # clip before the cast (an empty edge's ±3e38 has no integer), then
+        # cut to the rectangle's x tiles
+        f0 = torch.clamp(torch.floor((mean2d[:, 0:1] + u_lo) / tile_w),
+                         0.0, float(n_tiles_x))
+        f1 = torch.clamp(torch.floor((mean2d[:, 0:1] + u_hi) / tile_w),
+                         -1.0, float(n_tiles_x))
+        tx0_u = torch.maximum(f0.long(), x0[:, None])
+        tx1_u = torch.minimum(f1.long() + 1, x1[:, None])
+        w_u = torch.where(valid_g[:, None] & nonempty & (h_u > 0),
+                          torch.clamp(tx1_u - tx0_u, min=0), 0)
+        h_u = torch.where(w_u > 0, h_u, 0)
+        # a dead slot's row may lie past the grid: keep its index in range
+        u_x0, u_y0 = tx0_u.reshape(-1), torch.clamp(ty0_u,
+                                                    max=n_tiles_y).reshape(-1)
+        u_w, u_h = w_u.reshape(-1), h_u.reshape(-1)
+
+    ucounts = u_w * u_h
+    unit, tile, live = _expand_slots(ucounts, u_x0, u_y0, u_w, n_tiles_x,
+                                     n_tiles, m)
+    counts = ucounts.reshape(n, R).sum(dim=1)
+    # every pair counts in the histogram, also those past m
+    count_grid = _rect_counts(u_x0, u_y0, u_x0 + u_w, u_y0 + u_h,
+                              ucounts > 0, n_tiles_x, n_tiles_y)
+    return UnitExpansion(g=unit // R, tile=tile, live=live, counts=counts,
+                         offsets=torch.cumsum(counts, 0) - counts,
+                         total=counts.sum(), count_grid=count_grid)
+
+
 def bin_gaussians(mean2d: torch.Tensor, depth: torch.Tensor,
                   radius: torch.Tensor, *, rx: torch.Tensor, ry: torch.Tensor,
                   image_width: int, image_height: int, tile_h: int,
                   tile_w: int, m_cap: int, align: int,
                   pad_cap: Optional[int] = None,
                   presort_tables: bool = False,
-                  tile_row_base: int = 0) -> Binning:
+                  tile_row_base: int = 0,
+                  conic: Optional[torch.Tensor] = None,
+                  t_cut: Optional[torch.Tensor] = None,
+                  row_slots: int = 4) -> Binning:
     """Build the chunk-aligned, per-tile depth-ordered entry list.
 
     Inputs carry no gradient (the ordering is not differentiated). Every
@@ -130,7 +261,9 @@ def bin_gaussians(mean2d: torch.Tensor, depth: torch.Tensor,
     With ``presort_tables`` the result also carries ``inv_src``,
     ``g_offsets`` and ``g_counts``. With ``tile_row_base`` the image is a
     window of the frame that starts at that tile row (``tile_rect``); tile
-    ids are the window's own.
+    ids are the window's own. With ``conic`` (N,3) and ``t_cut`` (N,) the
+    rectangles are culled per tile row into ``row_slots`` slots (module
+    docstring).
     """
     dev = mean2d.device
     n = mean2d.shape[0]
@@ -142,25 +275,19 @@ def bin_gaussians(mean2d: torch.Tensor, depth: torch.Tensor,
     # order, so an entry's gaussian index doubles as its depth key.
     perm = torch.sort(depth, stable=True).indices
     mean2d, radius, rx, ry = mean2d[perm], radius[perm], rx[perm], ry[perm]
-
-    x0, y0, x1, y1 = tile_rect(mean2d, rx, ry, n_tiles_x, n_tiles_y,
-                               tile_h, tile_w, tile_row_base)
-    valid_g = (radius > 0) & (rx > 0) & (ry > 0)
-    w = torch.where(valid_g, torch.clamp(x1 - x0, min=0), 0)
-    h = torch.where(valid_g, torch.clamp(y1 - y0, min=0), 0)
-    counts = w * h
-    total = counts.sum()
-    offsets = torch.cumsum(counts, 0) - counts
+    if conic is not None:
+        conic, t_cut = conic[perm], t_cut[perm]
 
     # --- expansion into m_cap static slots; the histogram counts every
     # pair, also past m_cap (the JAX package's rect-indicator product does
     # the same), then clamps to m_cap
-    g_slot, tile, live = _expand_slots(counts, x0, y0, w, n_tiles_x,
-                                       n_tiles, m_cap)
-    gidx = torch.where(live, g_slot, n)            # pairs past m_cap drop
-    tile_count = torch.clamp(
-        _rect_counts(x0, y0, x1, y1, counts > 0, n_tiles_x,
-                     n_tiles_y).reshape(-1), max=m_cap)
+    ex = _expand_units(mean2d, radius, rx, ry, n_tiles_x=n_tiles_x,
+                       n_tiles_y=n_tiles_y, tile_h=tile_h, tile_w=tile_w,
+                       m=m_cap, tile_row_base=tile_row_base, conic=conic,
+                       t_cut=t_cut, row_slots=row_slots)
+    tile, total = ex.tile, ex.total
+    gidx = torch.where(ex.live, ex.g, n)           # pairs past m_cap drop
+    tile_count = torch.clamp(ex.count_grid.reshape(-1), max=m_cap)
     tile_start = torch.cumsum(tile_count, 0) - tile_count
     overflow = torch.clamp(total - m_cap, min=0)
 
@@ -199,7 +326,8 @@ def bin_gaussians(mean2d: torch.Tensor, depth: torch.Tensor,
         e = torch.arange(m_cap, device=dev)
         inv_src = torch.clamp(num_padded + e - total, max=m_out - 1)
         inv_src[order] = torch.where(keep, dest, inv_src[order])
-        extras = dict(inv_src=inv_src, g_offsets=offsets, g_counts=counts)
+        extras = dict(inv_src=inv_src, g_offsets=ex.offsets,
+                      g_counts=ex.counts)
 
     # memory-safety clamp for overflow frames
     padded_start = torch.clamp(padded_start, max=m_out - align)
@@ -251,39 +379,30 @@ def expand_slab(mean2d: torch.Tensor, depth: torch.Tensor,
                 radius: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor, *,
                 row_base: int, slab_base_entry: int, sentinel_row: int,
                 image_width: int, image_height: int, tile_h: int,
-                tile_w: int, m_slab: int,
-                tile_row_base: int = 0) -> SlabExpansion:
+                tile_w: int, m_slab: int, tile_row_base: int = 0,
+                conic: Optional[torch.Tensor] = None,
+                t_cut: Optional[torch.Tensor] = None,
+                row_slots: int = 4) -> SlabExpansion:
     """Expand ONE slab of (n_loc) gaussians, in storage order, into at most
     ``m_slab`` (tile, depth key, storage row) entries. ``row_base`` is the
     first global storage row of the slab's owner; ``slab_base_entry`` places
     the slab's presort range [slab_base_entry, slab_base_entry + m_slab) in
     the concatenated layout. The depth key is the f32 depth's bit pattern,
-    which orders as the depth does for depth > 0. ``tile_row_base`` as in
-    ``bin_gaussians``."""
-    n_tiles_x = -(-image_width // tile_w)
-    n_tiles_y = -(-image_height // tile_h)
-    n_tiles = n_tiles_x * n_tiles_y
-
-    x0, y0, x1, y1 = tile_rect(mean2d, rx, ry, n_tiles_x, n_tiles_y,
-                               tile_h, tile_w, tile_row_base)
-    valid_g = (radius > 0) & (rx > 0) & (ry > 0)
-    w = torch.where(valid_g, torch.clamp(x1 - x0, min=0), 0)
-    h = torch.where(valid_g, torch.clamp(y1 - y0, min=0), 0)
-    counts = w * h
-    total = counts.sum()
-    offsets = torch.cumsum(counts, 0) - counts
-
-    g, tile, live = _expand_slots(counts, x0, y0, w, n_tiles_x, n_tiles,
-                                  m_slab)
-    # every pair counts in the histogram, also those past m_slab
-    count_grid = _rect_counts(x0, y0, x1, y1, counts > 0, n_tiles_x,
-                              n_tiles_y)
+    which orders as the depth does for depth > 0; a culled slot repeats its
+    gaussian's. ``tile_row_base``, ``conic``, ``t_cut`` and ``row_slots``
+    as in ``bin_gaussians``."""
+    ex = _expand_units(mean2d, radius, rx, ry,
+                       n_tiles_x=-(-image_width // tile_w),
+                       n_tiles_y=-(-image_height // tile_h), tile_h=tile_h,
+                       tile_w=tile_w, m=m_slab, tile_row_base=tile_row_base,
+                       conic=conic, t_cut=t_cut, row_slots=row_slots)
     dbits = depth.contiguous().view(torch.int32).long()
     return SlabExpansion(
-        tile=tile, dkey=torch.where(live, dbits[g], _DKEY_SENTINEL),
-        gidx=torch.where(live, row_base + g, sentinel_row), counts=counts,
-        offsets=slab_base_entry + offsets, count_grid=count_grid,
-        total=total, overflow=torch.clamp(total - m_slab, min=0))
+        tile=ex.tile, dkey=torch.where(ex.live, dbits[ex.g], _DKEY_SENTINEL),
+        gidx=torch.where(ex.live, row_base + ex.g, sentinel_row),
+        counts=ex.counts, offsets=slab_base_entry + ex.offsets,
+        count_grid=ex.count_grid, total=ex.total,
+        overflow=torch.clamp(ex.total - m_slab, min=0))
 
 
 def merge_slab_binning(slabs, *, sentinel_row: int, image_width: int,

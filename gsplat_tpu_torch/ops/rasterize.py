@@ -169,6 +169,16 @@ def _tiles_to_image(tiles: torch.Tensor, n_tiles_y: int, n_tiles_x: int,
     return img[:, :H, :W]
 
 
+def cull_kw(pre: preprocess_lib.Preprocessed,
+            cfg: RasterizerConfig) -> dict:
+    """The binning's row-cull arguments under ``cfg.row_cull``: the
+    conics and level-set thresholds (no gradient), else none."""
+    if not cfg.row_cull:
+        return {}
+    return dict(conic=pre.conic.detach(), t_cut=pre.t_cut.detach(),
+                row_slots=cfg.row_slots)
+
+
 def build_entries(gaussians: GaussianParams, cam: CameraView,
                   image_width: int, image_height: int,
                   cfg: RasterizerConfig = RasterizerConfig(), *,
@@ -205,7 +215,8 @@ def build_entries(gaussians: GaussianParams, cam: CameraView,
         pre.mean2d.detach(), pre.depth.detach(), pre.radius.detach(),
         rx=pre.rx.detach(), ry=pre.ry.detach(), image_width=W,
         image_height=H, tile_h=cfg.tile_h, tile_w=cfg.tile_w, m_cap=m_cap,
-        align=cfg.chunk, pad_cap=None if cfg.pad_cap < 0 else cfg.pad_cap)
+        align=cfg.chunk, pad_cap=None if cfg.pad_cap < 0 else cfg.pad_cap,
+        **cull_kw(pre, cfg))
     # per-gaussian rows in the binning's depth order; the extra row keeps
     # the sentinel (= zero row) addressable. index_select, whose gradient
     # is index_add_ (atomic adds): indexing with [] differentiates into

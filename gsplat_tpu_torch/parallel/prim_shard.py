@@ -26,8 +26,10 @@ own slab's cotangent, sums the parts' gradients once (``sum_grad``; locally
 autograd's accumulation over the K slabs is that sum): JAX's
 ``shard_map`` transpose of the replicated input. One sum, not two: the JAX
 package's note on this render records that an extra ``_psum_grad`` doubled
-the gradient. The JAX package's ``row_cull`` branch is not ported: the
-port's config has no ``row_cull``.
+the gradient. Under the config's ``row_cull`` each slab's binning culls
+per tile row; the slab mask rides on ``radius`` / ``rx`` / ``ry`` and the
+intervals do not depend on the slab, so the slabs together drop exactly
+the single render's culled pairs.
 """
 from __future__ import annotations
 
@@ -43,7 +45,8 @@ from gsplat_tpu_torch.ops import binning as binning_lib
 from gsplat_tpu_torch.ops import preprocess as preprocess_lib
 from gsplat_tpu_torch.ops.kernels.composite import slab_transmittance
 from gsplat_tpu_torch.ops.rasterize import (Entries, _tiles_to_image,
-                                            composite_dispatch, pack_entries)
+                                            composite_dispatch, cull_kw,
+                                            pack_entries)
 from gsplat_tpu_torch.parallel import as_parts
 
 _BIG = 3.0e38
@@ -102,6 +105,7 @@ def build_slab_entries(gaussians: GaussianParams, cam: CameraView,
     bounds = _slab_bounds(depth, radius > 0, parts.n)
     packed = parts.sum_grad(pack_entries(pre))                   # (N+1,16)
     zero = torch.zeros_like(radius)
+    cull = cull_kw(pre, cfg)
 
     slabs = []
     for k in parts.mine:
@@ -112,7 +116,7 @@ def build_slab_entries(gaussians: GaussianParams, cam: CameraView,
             rx=torch.where(in_slab, rx, zero),
             ry=torch.where(in_slab, ry, zero), image_width=W,
             image_height=H, tile_h=cfg.tile_h, tile_w=cfg.tile_w,
-            m_cap=m_cap, align=cfg.chunk)
+            m_cap=m_cap, align=cfg.chunk, **cull)
         perm_ext = torch.cat([b.perm, b.perm.new_full((1,), cap)])
         entries = packed.index_select(0, perm_ext).index_select(
             0, b.gidx_sorted)

@@ -14,7 +14,8 @@ Counterpart of gsplat_tpu/parallel/sharded.py (``make_sharded_render``,
   within one ulp of a tile boundary); the entries keep their global means
   and the compositor gets the band's first tile id.
 - **What a shard gathers** is the ``transient``: ``"replicated"`` gathers
-  the (N,6) binning geometry and the (N,16) packed rows of all shards;
+  the (N,6) binning geometry (N,10 under ``row_cull``: the conic and the
+  level-set threshold too) and the (N,16) packed rows of all shards;
   ``"ring"`` gathers the geometry but streams the packed rows slab by slab
   around the ring, taking from each owner's (N/D,16) slab the rows its
   entries name, and never holds an (N,16) table; ``"slab"`` streams the
@@ -44,8 +45,8 @@ their owners). ``num_pairs`` is summed over the parts, ``overflow`` and
 ``num_padded`` take their largest, as JAX's ``psum`` / ``pmax``. The 2-D
 step (``make_sharded_dp_train_step``) lays out JAX's ``data`` x ``prim``
 mesh of ranks and reduces each shard's gradients over its ``data`` line.
-Not ported: the ``row_cull`` branches (the port's config has no
-``row_cull``).
+Under the config's ``row_cull`` every shard's binning culls per tile row
+(ops/binning.py), its slots' rows in the frame's coordinates.
 """
 from __future__ import annotations
 
@@ -192,6 +193,13 @@ class _RingGatherEntriesSlab(torch.autograd.Function):
                                                              ctx.k))
 
 
+def _cull_cols(g: torch.Tensor, cfg: RasterizerConfig) -> dict:
+    """The binning's row-cull arguments from geometry columns 6-9."""
+    if not cfg.row_cull:
+        return {}
+    return dict(conic=g[:, 6:9], t_cut=g[:, 9], row_slots=cfg.row_slots)
+
+
 def _render_shard_slab(k: int, parts, packed, geom, *, W: int,
                        rows_loc: int, cfg: RasterizerConfig, m_cap_loc: int):
     """Shard k's entries with BOTH streams (transient="slab"): each owner's
@@ -222,7 +230,7 @@ def _render_shard_slab(k: int, parts, packed, geom, *, W: int,
             g[:, :2], g[:, 2], g[:, 3], g[:, 4], g[:, 5],
             row_base=owner * rows, slab_base_entry=owner * m_slab,
             sentinel_row=cap_total, m_slab=m_slab,
-            tile_row_base=k * rows_loc, **kw)
+            tile_row_base=k * rows_loc, **_cull_cols(g, cfg), **kw)
     b = binning_lib.merge_slab_binning(slabs, sentinel_row=cap_total,
                                        align=cfg.chunk, **kw)
     slab_totals = torch.stack([torch.clamp(sl.total, max=m_slab)
@@ -236,7 +244,7 @@ def _render_shard_slab(k: int, parts, packed, geom, *, W: int,
 def _render_shard(k: int, parts, packed, geom_all: torch.Tensor,
                   packed_ext: Optional[torch.Tensor], *, W: int,
                   rows_loc: int, cfg: RasterizerConfig, m_cap_loc: int):
-    """Shard k's entries from the gathered (N,6) geometry: the standard
+    """Shard k's entries from the gathered (N,6|10) geometry: the standard
     binning on the band's window, then the entry gather from the gathered
     packed table (transient="replicated": ``packed_ext`` (N+1,16), the zero
     row last) or around the ring (transient="ring")."""
@@ -247,7 +255,8 @@ def _render_shard(k: int, parts, packed, geom_all: torch.Tensor,
         geom_all[:, :2], geom_all[:, 2], geom_all[:, 3], rx=geom_all[:, 4],
         ry=geom_all[:, 5], image_width=W, image_height=rows_loc * th,
         tile_h=th, tile_w=tw, m_cap=m_cap_loc, align=cfg.chunk,
-        presort_tables=ring, tile_row_base=k * rows_loc)
+        presort_tables=ring, tile_row_base=k * rows_loc,
+        **_cull_cols(geom_all, cfg))
     perm_ext = torch.cat([b.perm, b.perm.new_full((1,), cap_total)])
     if not ring:
         entries = packed_ext.index_select(0, perm_ext).index_select(
@@ -277,11 +286,16 @@ def _render_bands(parts, shards: List[Dict[str, torch.Tensor]],
                   taps: Optional[List[torch.Tensor]], cam: CameraView, *,
                   W: int, H: int, cfg: RasterizerConfig, m_cap_loc: int,
                   antialiasing: bool, transient: str,
-                  scaling_modifier: float = 1.0) -> _Bands:
+                  scaling_modifier: float = 1.0,
+                  override_color: Optional[List[torch.Tensor]] = None,
+                  cov3d_precomp: Optional[List[torch.Tensor]] = None
+                  ) -> _Bands:
     """The shards' part of one frame that this process holds (lists
     aligned with ``parts.mine``): preprocess of their own rows, the gathers
     of the ``transient``, binning and compositing of their bands of tile
-    rows; then the bands gathered into the frame on every part."""
+    rows; then the bands gathered into the frame on every part.
+    ``override_color`` / ``cov3d_precomp``: per-row colors and covariances
+    of each shard's rows, as ``render`` takes them."""
     if transient not in TRANSIENTS:
         raise ValueError(f"transient must be one of {TRANSIENTS}, got "
                          f"{transient!r}")
@@ -300,21 +314,27 @@ def _render_bands(parts, shards: List[Dict[str, torch.Tensor]],
             g_loc.get_opacity(), g_loc.get_features(), sh_degree, cam, W, H,
             active_mask=active[i], scaling_modifier=scaling_modifier,
             antialiasing=antialiasing, dilation=cfg.dilation,
-            alpha_min=cfg.alpha_min)
+            alpha_min=cfg.alpha_min,
+            cov3d_precomp=None if cov3d_precomp is None else cov3d_precomp[i],
+            colors_precomp=(None if override_color is None
+                            else override_color[i]))
         if taps is not None:
             scale = torch.tensor([[0.5 * W, 0.5 * H]], dtype=torch.float32,
                                  device=taps[i].device)
             pre = pre._replace(mean2d=pre.mean2d + taps[i] * scale)
         pres.append(pre)
         packed.append(pack_rows(pre))                        # (cap/D, 16)
-        geom.append(torch.stack(
-            [pre.mean2d[:, 0], pre.mean2d[:, 1], pre.depth, pre.radius,
-             pre.rx, pre.ry], dim=-1).detach())              # (cap/D, 6)
+        cols = [pre.mean2d[:, 0], pre.mean2d[:, 1], pre.depth, pre.radius,
+                pre.rx, pre.ry]
+        if cfg.row_cull:                # the conic and level-set threshold
+            cols += [pre.conic[:, 0], pre.conic[:, 1], pre.conic[:, 2],
+                     pre.t_cut]
+        geom.append(torch.stack(cols, dim=-1).detach())     # (cap/D, 6|10)
 
     kw = dict(W=W, rows_loc=rows_loc, cfg=cfg, m_cap_loc=m_cap_loc)
     geom_all = packed_ext = None
     if transient != "slab":
-        geom_all = parts.gather(geom).reshape(-1, 6)         # (N, 6)
+        geom_all = parts.gather(geom).reshape(-1, geom[0].shape[1])
     if transient == "replicated":
         # each band consumes the table its own way: the backward sums the
         # parts' cotangents and hands each owner its rows (psum_scatter)
@@ -382,12 +402,17 @@ def make_sharded_render(n_shards, *, image_width: int, image_height: int,
     state, whose capacity must divide by D) or a ``RankParts`` (the
     gaussians are this rank's rows). A frame with ``overflow > 0`` is
     garbage by the binning contract: grow ``m_cap_total`` and render
-    again."""
+    again. The function also takes ``render``'s ``scaling_modifier``,
+    ``override_color`` and ``cov3d_precomp``, the last two per row of the
+    gaussians it is given."""
     parts = as_parts(n_shards)
     W, H = image_width, image_height
 
     def fn(gaussians: gm.GaussianParams, cam: CameraView,
-           bg: torch.Tensor) -> ShardedRenderOut:
+           bg: torch.Tensor, *, scaling_modifier: float = 1.0,
+           override_color: Optional[torch.Tensor] = None,
+           cov3d_precomp: Optional[torch.Tensor] = None
+           ) -> ShardedRenderOut:
         _check_divides(parts, gaussians.capacity)
         cap = parts.total_rows(gaussians.capacity)
         t = {k: parts.split(v) for k, v in gm.trainables(gaussians).items()}
@@ -397,7 +422,12 @@ def make_sharded_render(n_shards, *, image_width: int, image_height: int,
             parts.split(gaussians.active), gaussians.active_sh_degree, None,
             cam, W=W, H=H, cfg=cfg,
             m_cap_loc=shard_capacity(cap, cfg, parts.n, m_cap_total),
-            antialiasing=antialiasing, transient=transient)
+            antialiasing=antialiasing, transient=transient,
+            scaling_modifier=scaling_modifier,
+            override_color=(None if override_color is None
+                            else parts.split(override_color)),
+            cov3d_precomp=(None if cov3d_precomp is None
+                           else parts.split(cov3d_precomp)))
         image = torch.clamp(
             out.full[:3] + out.full[4:5] * bg[:, None, None], 0.0, 1.0)
         return ShardedRenderOut(image=image, invdepth=out.full[3:4],

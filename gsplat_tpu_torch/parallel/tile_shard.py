@@ -22,8 +22,9 @@ parts' gradients once (``sum_grad``: JAX's ``_psum_grad`` on the
 replicated parameters; locally autograd's accumulation over the K bands is
 that sum).
 The compositor needs no whole number of strips, so the JAX package's strip
-rounding of the per-band capacity has no counterpart, and its ``row_cull``
-branch is not ported: the port's config has no ``row_cull``.
+rounding of the per-band capacity has no counterpart. Under the config's
+``row_cull`` each band's binning culls per tile row, its slots' pixel rows
+found in the frame's coordinates like its rectangles.
 """
 from __future__ import annotations
 
@@ -37,7 +38,8 @@ from gsplat_tpu_torch.models.gaussian_model import GaussianParams
 from gsplat_tpu_torch.ops import binning as binning_lib
 from gsplat_tpu_torch.ops import preprocess as preprocess_lib
 from gsplat_tpu_torch.ops.rasterize import (_tiles_to_image,
-                                            composite_dispatch, pack_entries)
+                                            composite_dispatch, cull_kw,
+                                            pack_entries)
 from gsplat_tpu_torch.parallel import as_parts
 
 
@@ -83,7 +85,8 @@ def render_tile_sharded(gaussians: GaussianParams, cam: CameraView,
             mean2d, pre.depth.detach(), pre.radius.detach(),
             rx=pre.rx.detach(), ry=pre.ry.detach(), image_width=W,
             image_height=rows_loc * th, tile_h=th, tile_w=tw, m_cap=m_loc,
-            align=cfg.chunk, tile_row_base=k * rows_loc)
+            align=cfg.chunk, tile_row_base=k * rows_loc,
+            **cull_kw(pre, cfg))
         perm_ext = torch.cat([b.perm, b.perm.new_full((1,), cap)])
         entries = packed.index_select(0, perm_ext).index_select(
             0, b.gidx_sorted)

@@ -1,6 +1,9 @@
 """Host-side cameras: image/mask/depth loading and the device CameraView.
-Counterpart of gsplat_tpu/scene/cameras.py. Images decode through PIL,
-imported where an image is read."""
+Counterpart of gsplat_tpu/scene/cameras.py. Images decode and resize
+through the native threaded loader (gsplat_tpu_torch/native: libjpeg /
+libpng and an area filter) when it builds, the whole camera set in one
+``decode_batch`` per target resolution; PIL, imported where an image is
+read, is the fallback, and ``GSPLAT_NATIVE_LOADER=0`` forces it."""
 from __future__ import annotations
 
 import math
@@ -78,20 +81,42 @@ def _resolution_policy(resolution_arg: int, resolution_scale: float,
 
 
 def load_cam(resolution_arg: int, cam_info: CameraInfo, resolution_scale=1.0,
-             train_test_exp=False, is_test_dataset=False) -> Camera:
-    """Resolution policy + image/depth decode through PIL."""
+             train_test_exp=False, is_test_dataset=False,
+             predecoded=None) -> Camera:
+    """Resolution policy + image/depth decode. ``predecoded``: the image's
+    (4,H,W) RGBA buffer and alpha flag from the native batch decoder."""
     from PIL import Image
 
-    with Image.open(cam_info.image_path) as pil:
+    from gsplat_tpu_torch import native
+
+    size = native.image_size(cam_info.image_path) if native.available() \
+        else None
+    decoded = None
+    if size is None:
+        with Image.open(cam_info.image_path) as pil:
+            resolution = _resolution_policy(resolution_arg, resolution_scale,
+                                            *pil.size)
+    else:
         resolution = _resolution_policy(resolution_arg, resolution_scale,
-                                        *pil.size)
-        arr = np.asarray(pil).astype(np.float32) / 255.0
-    if arr.ndim == 2:
-        arr = arr[:, :, None].repeat(3, axis=2)
-    img = Image.fromarray((np.clip(arr, 0, 1) * 255).astype(np.uint8))
-    resized = np.asarray(img.resize(resolution)).astype(np.float32) / 255.0
-    if resized.ndim == 2:
-        resized = resized[:, :, None].repeat(3, axis=2)
+                                        *size)
+        decoded = predecoded if predecoded is not None \
+            else native.decode_image(cam_info.image_path, *resolution)
+
+    if decoded is not None:
+        chw, has_alpha = decoded                    # (4,H,W) RGBA
+        resized = chw.transpose(1, 2, 0)
+        if not has_alpha:
+            resized = resized[:, :, :3]
+    else:
+        with Image.open(cam_info.image_path) as pil:
+            arr = np.asarray(pil).astype(np.float32) / 255.0
+        if arr.ndim == 2:
+            arr = arr[:, :, None].repeat(3, axis=2)
+        img = Image.fromarray((np.clip(arr, 0, 1) * 255).astype(np.uint8))
+        resized = np.asarray(img.resize(resolution)).astype(np.float32) \
+            / 255.0
+        if resized.ndim == 2:
+            resized = resized[:, :, None].repeat(3, axis=2)
     rgb = resized[:, :, :3]
     if resized.shape[2] == 4:
         alpha = resized[:, :, 3:4]
@@ -149,8 +174,30 @@ def load_cam(resolution_arg: int, cam_info: CameraInfo, resolution_scale=1.0,
 def camera_list_from_infos(cam_infos: List[CameraInfo], resolution_scale,
                            resolution_arg, is_test_dataset,
                            train_test_exp=False) -> List[Camera]:
+    """The cameras of ``cam_infos``. With the native loader built, the whole
+    set decodes through one threaded ``decode_batch`` per target
+    resolution; an image it cannot read decodes by itself."""
+    from gsplat_tpu_torch import native
+
+    predecoded = {}
+    if native.available():
+        groups = {}
+        for i, c in enumerate(cam_infos):
+            size = native.image_size(c.image_path)
+            if size is None:
+                continue
+            res = _resolution_policy(resolution_arg, resolution_scale, *size)
+            groups.setdefault(res, []).append(i)
+        for (w, h), idxs in groups.items():
+            out = native.decode_batch(
+                [cam_infos[i].image_path for i in idxs], w, h)
+            if out is not None:
+                bufs, flags = out
+                for j, i in enumerate(idxs):
+                    predecoded[i] = (bufs[j], bool(flags[j]))
     return [load_cam(resolution_arg, c, resolution_scale, train_test_exp,
-                     is_test_dataset) for c in cam_infos]
+                     is_test_dataset, predecoded=predecoded.get(i))
+            for i, c in enumerate(cam_infos)]
 
 
 def camera_to_json(idx: int, camera) -> dict:

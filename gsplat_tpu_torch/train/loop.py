@@ -53,8 +53,10 @@ one process per card, from ``torchrun``). A ``network_gui_server``
 an error of its render raises out of ``train``. Under a process group rank
 0 alone serves it, and the other ranks wait in the Hold while its client
 keeps training paused or keeps the last iteration alive; under
-rank-sharded storage it raises (every rank would have to render the
-client's frame).
+rank-sharded storage they render every frame with it instead
+(``network_gui.RankFrames``: rank 0 sends each request over the Hold's
+group, every prim line renders it through the sharded render, and rank 0
+answers), until rank 0's poll ends.
 """
 from __future__ import annotations
 
@@ -83,6 +85,7 @@ from gsplat_tpu_torch.train import checkpoint as ckpt_lib
 from gsplat_tpu_torch.train import trainer
 from gsplat_tpu_torch.utils.general import Timer, resolve_device
 from gsplat_tpu_torch.utils.telemetry import Telemetry
+from gsplat_tpu_torch.viewer import network_gui
 
 
 def _round_up(x, m):
@@ -157,10 +160,6 @@ def train(dataset: ModelConfig, opt: OptimizationConfig, pipe: PipelineConfig,
     # viewer client, which may keep training paused
     hold_for_bridge = hold is not None and hold.from_rank0(
         network_gui_server is not None)
-    if ranked and hold_for_bridge:
-        raise ValueError(
-            "the viewer bridge is not served under rank-sharded storage: "
-            "every rank would have to render the client's frame")
 
     # ---- the mesh: camera data parallelism and / or gaussian-sharded
     # storage over the ranks, or row shards in this process ----
@@ -176,6 +175,10 @@ def train(dataset: ModelConfig, opt: OptimizationConfig, pipe: PipelineConfig,
         if data_parallel and n_ranks > 1:
             data_batch = n_ranks
             mesh = mesh_lib.make_mesh((("data", n_ranks),))
+    # under rank-sharded storage every rank renders the client's frames
+    bridge_ranks = (network_gui.RankFrames(hold, parts,
+                                           transient=shard_transient)
+                    if ranked and hold_for_bridge else None)
     n_prim = parts.n
     data_coord = mesh.coords.get("data", 0) if mesh is not None else 0
     if data_batch > 1:
@@ -297,8 +300,11 @@ def train(dataset: ModelConfig, opt: OptimizationConfig, pipe: PipelineConfig,
         if network_gui_server is not None:
             network_gui_server.poll(state, scene, pipe, rcfg, bg_color,
                                     iteration, opt.iterations,
-                                    dataset.train_test_exp)
-        if hold_for_bridge:
+                                    dataset.train_test_exp,
+                                    ranks=bridge_ranks)
+        elif bridge_ranks is not None:
+            bridge_ranks.follow(state, rcfg, pipe, bg_color, dev)
+        if hold_for_bridge and bridge_ranks is None:
             hold.wait()
 
         if not viewpoint_stack:

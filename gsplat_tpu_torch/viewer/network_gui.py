@@ -11,6 +11,16 @@ as the render CLI's python paths do.
 ``KeyError``); an error of the render itself raises out of ``poll`` and
 out of the training loop that calls it, where JAX's bridge drops the
 client on any exception.
+
+Under rank-sharded storage (``train(..., shard_gaussians=True)`` over a
+process group) each rank holds only its rows, so every rank renders the
+client's frames (``RankFrames``): rank 0, which owns the socket, sends
+each request to the ranks over the loop's ``Hold`` group (host side, its
+7-day timeout, since a paused client may wait) before it renders, and a
+last message, "train on", when its poll ends, also when the client
+dropped; the other ranks render each request with ``make_sharded_render``
+on their prim line's ``RankParts`` until that message. JAX renders the
+client's frame from the global sharded state on every device.
 """
 from __future__ import annotations
 
@@ -21,6 +31,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gsplat_tpu_torch.scene.cameras import MiniCam
 from gsplat_tpu_torch.utils.general import resolve_device
@@ -123,9 +134,11 @@ class NetworkGUI:
     # ---- per-iteration poll ----
 
     def poll(self, state, scene, pipe, rcfg, bg_color, iteration,
-             max_iterations, train_test_exp=False):
+             max_iterations, train_test_exp=False, ranks=None):
         """Serve the connected client (accepting one if none is): frames
-        until it asks to train on, one per iteration while training runs."""
+        until it asks to train on, one per iteration while training runs.
+        ``ranks``: the ``RankFrames`` of rank-sharded storage, which every
+        request and the poll's end are sent to."""
         if self.conn is None:
             self._try_connect()
         while self.conn is not None:
@@ -136,7 +149,10 @@ class NetworkGUI:
                 break
             frame = None
             if req.cam is not None:
-                frame = self._render_frame(state, req, rcfg, pipe, bg_color)
+                if ranks is not None:
+                    ranks.announce(req)
+                frame = self._render_frame(state, req, rcfg, pipe, bg_color,
+                                           ranks)
             try:
                 self.send_frame(frame, getattr(scene, "source_path", ""))
             except OSError:
@@ -145,35 +161,88 @@ class NetworkGUI:
             if req.training and (iteration < max_iterations
                                  or not req.keep_alive):
                 break
+        if ranks is not None:
+            ranks.announce(None)               # train on
 
-    @torch.no_grad()
-    def _render_frame(self, state, req: ViewerRequest, rcfg, pipe,
-                      bg_color) -> memoryview:
-        """The request's frame as H·W·3 uint8 bytes, truncated from the
-        clamped image as the JAX bridge does."""
-        from gsplat_tpu_torch.core import sh as sh_lib
-        from gsplat_tpu_torch.ops.rasterize import render
+    def _render_frame(self, state, req: ViewerRequest, rcfg, pipe, bg_color,
+                      ranks=None) -> memoryview:
+        """The request's frame as the client's bytes."""
+        kw = {} if ranks is None else dict(parts=ranks.parts,
+                                            transient=ranks.transient)
+        return frame_bytes(render_request(state, req, rcfg, pipe, bg_color,
+                                          self.device, **kw))
 
-        g = state.gaussians
-        cv = req.cam.view(self.device)
 
-        override_color = None
-        if req.sh_python:
-            dirs = g.xyz - cv.camera_center[None, :]
-            dirs = dirs / torch.clamp(
-                torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-8)
-            override_color = torch.clamp(sh_lib.eval_sh(
-                g.active_sh_degree, g.get_features().transpose(1, 2), dirs)
-                + 0.5, min=0.0)
-        cov3d = g.get_covariance(req.scaling_modifier) \
-            if req.rot_scale_python else None
+class RankFrames:
+    """The bridge's frames under rank-sharded storage: one message per
+    request from rank 0 over ``hold``'s group, every rank rendering it on
+    its rows with ``make_sharded_render`` over ``parts`` (its prim line;
+    under the data x prim layout each line renders, and rank 0 answers
+    from its own)."""
 
-        out = render(g, cv, req.cam.image_width, req.cam.image_height,
-                     torch.as_tensor(bg_color, dtype=torch.float32,
-                                     device=self.device), rcfg,
-                     scaling_modifier=req.scaling_modifier,
-                     antialiasing=pipe.antialiasing,
-                     override_color=override_color, cov3d_precomp=cov3d)
-        img = torch.clamp(out.image, 0, 1).cpu().numpy()
-        return memoryview((img * 255).astype(np.uint8)
-                          .transpose(1, 2, 0).copy(order="C"))
+    def __init__(self, hold, parts, *, transient: str = "replicated"):
+        self.hold, self.parts, self.transient = hold, parts, transient
+
+    def _message(self, req=None):
+        msg = [req]
+        dist.broadcast_object_list(msg, src=0, group=self.hold.group)
+        return msg[0]
+
+    def announce(self, req: Optional[ViewerRequest]):
+        """Rank 0: the ranks render ``req`` next; None: train on."""
+        self._message(req)
+
+    def follow(self, state, rcfg, pipe, bg_color, device):
+        """A rank other than 0: render rank 0's requests until it trains
+        on."""
+        while (req := self._message()) is not None:
+            render_request(state, req, rcfg, pipe, bg_color, device,
+                           parts=self.parts, transient=self.transient)
+
+
+@torch.no_grad()
+def render_request(state, req: ViewerRequest, rcfg, pipe, bg_color, device,
+                   parts=None, transient: str = "replicated") -> torch.Tensor:
+    """The request's clamped (3,H,W) image of ``state``'s gaussians:
+    ``render``, or with ``parts`` (a ``RankParts``, or an int of local
+    shards) the sharded render of ``transient``. The client's python
+    toggles are per row (SH evaluated on the host's rows, covariances from
+    their scales and rotations), so under ranks each rank computes them on
+    its own rows; overflow is not checked, as in JAX's bridge."""
+    from gsplat_tpu_torch.core import sh as sh_lib
+    from gsplat_tpu_torch.ops.rasterize import render
+    from gsplat_tpu_torch.parallel.sharded import make_sharded_render
+
+    g = state.gaussians
+    cv = req.cam.view(device)
+    override_color = None
+    if req.sh_python:
+        dirs = g.xyz - cv.camera_center[None, :]
+        dirs = dirs / torch.clamp(
+            torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-8)
+        override_color = torch.clamp(sh_lib.eval_sh(
+            g.active_sh_degree, g.get_features().transpose(1, 2), dirs)
+            + 0.5, min=0.0)
+    cov3d = g.get_covariance(req.scaling_modifier) \
+        if req.rot_scale_python else None
+    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=device)
+    W, H = req.cam.image_width, req.cam.image_height
+    kw = dict(scaling_modifier=req.scaling_modifier,
+              override_color=override_color, cov3d_precomp=cov3d)
+    if parts is None:
+        out = render(g, cv, W, H, bg, rcfg, antialiasing=pipe.antialiasing,
+                     **kw)
+    else:
+        out = make_sharded_render(
+            parts, image_width=W, image_height=H, cfg=rcfg,
+            antialiasing=pipe.antialiasing, transient=transient)(
+                g, cv, bg, **kw)
+    return torch.clamp(out.image, 0, 1)
+
+
+def frame_bytes(image: torch.Tensor) -> memoryview:
+    """A (3,H,W) image in [0,1] as the client's H·W·3 uint8 bytes, truncated
+    as the JAX bridge does."""
+    img = image.cpu().numpy()
+    return memoryview((img * 255).astype(np.uint8)
+                      .transpose(1, 2, 0).copy(order="C"))

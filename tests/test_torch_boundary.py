@@ -1,6 +1,7 @@
 """The port's import boundary and device contract.
 
-gsplat_tpu_torch, chip_smoke.py, the A/B scripts (compositor_ab.py,
+gsplat_tpu_torch (the native loader and the depth-scale CLI among its
+modules), chip_smoke.py, the A/B scripts (compositor_ab.py,
 ssim_ab.py), rank0_writes.py and the port's root CLIs (``*_torch.py``) import neither JAX
 nor anything of the gsplat_tpu package, and
 the port's entry points run on CUDA unless the caller asks for the CPU:
@@ -26,6 +27,7 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke, compositor_ab, ssim_ab, rank0_writes
 import metrics_torch, full_eval_torch, convert_torch, view_torch
+import make_depth_scale_torch
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "gsplat_tpu"
              or m.startswith("gsplat_tpu."))
@@ -63,7 +65,8 @@ def test_port_imports_no_jax_and_no_gsplat_tpu():
                 "gsplat_tpu_torch.cli.full_eval",
                 "gsplat_tpu_torch.cli.convert", "gsplat_tpu_torch.cli.view",
                 "gsplat_tpu_torch.viewer.network_gui",
-                "gsplat_tpu_torch.viewer.web"):
+                "gsplat_tpu_torch.viewer.web", "gsplat_tpu_torch.native",
+                "gsplat_tpu_torch.cli.make_depth_scale"):
         assert mod in res["modules"]
 
 

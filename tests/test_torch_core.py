@@ -1,5 +1,7 @@
-"""Port parity: core transforms, SH and CameraView against the JAX package,
-rtol 1e-5 / atol 1e-6."""
+"""Port parity: core transforms, SH, CameraView and the schedules against
+the JAX package, rtol 1e-5 / atol 1e-6; the covariance unpacked by
+``cov6_to_mat`` against scipy's rotations and as a symmetric PSD matrix
+(tests/test_core.py:75-105)."""
 import numpy as np
 import pytest
 import torch
@@ -43,6 +45,54 @@ def test_transforms_match_jax(rng):
                                   jtf.projection_matrix(0.01, 100.0, 0.9, 0.7))
     assert ttf.fov2focal(0.9, 640) == jtf.fov2focal(0.9, 640)
     assert ttf.focal2fov(500.0, 640) == jtf.focal2fov(500.0, 640)
+
+
+def test_core_helpers_match_jax(rng):
+    from gsplat_tpu.core import schedules as jsched
+    from gsplat_tpu_torch.core import schedules as tsched
+    q = rng.standard_normal((40, 4)).astype(np.float32)
+    s = rng.uniform(0.01, 2.0, (40, 3)).astype(np.float32)
+    np.testing.assert_allclose(
+        t2n(ttf.build_scaling_rotation(torch.tensor(s), torch.tensor(q))),
+        np.asarray(jtf.build_scaling_rotation(jnp.asarray(s),
+                                              jnp.asarray(q))), **TOL)
+    c6 = rng.standard_normal((7, 5, 6)).astype(np.float32)
+    np.testing.assert_array_equal(t2n(ttf.cov6_to_mat(torch.tensor(c6))),
+                                  np.asarray(jtf.cov6_to_mat(
+                                      jnp.asarray(c6))))
+    for kw in (dict(lr_init=1e-2, lr_final=1e-4, max_steps=1000),
+               dict(lr_init=1e-2, lr_final=1e-4, lr_delay_steps=100,
+                    lr_delay_mult=0.01, max_steps=1000),
+               dict(lr_init=0.0, lr_final=0.0, max_steps=10)):
+        fn, jfn = tsched.make_expon_lr_fn(**kw), jsched.make_expon_lr_fn(**kw)
+        for step in (-1, 0, 1, 50, 100, 500, 999, 1000, 2000):
+            np.testing.assert_allclose(fn(step), float(jfn(step)), **TOL)
+
+
+def _cov_mats(rng, n):
+    s = np.exp(rng.standard_normal((n, 3)).astype(np.float32) * 0.3)
+    q = rng.standard_normal((n, 4)).astype(np.float32)   # (w,x,y,z)
+    C = t2n(ttf.cov6_to_mat(ttf.covariance_from_scaling_rotation(
+        torch.tensor(s), 1.0, torch.tensor(q))))
+    return s, q, C
+
+
+def test_covariance_matches_scipy_oracle(rng):
+    from scipy.spatial.transform import Rotation
+    s, q, C = _cov_mats(rng, 24)
+    qn = q / np.linalg.norm(q, axis=1, keepdims=True)
+    R = Rotation.from_quat(qn[:, [1, 2, 3, 0]]).as_matrix()  # xyzw order
+    want = np.einsum("nij,nj,nkj->nik", R, s.astype(np.float64) ** 2, R)
+    np.testing.assert_allclose(C, want, rtol=1e-4, atol=1e-6)
+
+
+def test_covariance_psd_and_symmetric(rng):
+    s, _, C = _cov_mats(rng, 32)
+    np.testing.assert_allclose(C, np.swapaxes(C, -1, -2), atol=1e-6)
+    assert (np.linalg.eigvalsh(C) > -1e-5).all()
+    # det(Σ) == (∏ s_i)^2: the rotation keeps the determinant
+    np.testing.assert_allclose(np.linalg.det(C), (s.prod(-1)) ** 2,
+                               rtol=2e-2)
 
 
 @pytest.mark.parametrize("deg", [0, 1, 2, 3, 4])

@@ -36,14 +36,28 @@ Gates, those of the JAX tests ported:
 - every point-to-point call (``parallel.exchange``: a ring step, a
   densify event, a capacity growth) posts its receives and sends as one
   batch, and each rank gets what its peers sent;
-- ``n_shards > 1`` under a process group raises and names torchrun; the
-  SIBR bridge under rank-sharded storage raises on every rank.
+- the same renders, gradients and steps with the config's ``row_cull``
+  (per-tile-row ellipse culling) against JAX's culled ones at the same
+  gates, images bit for bit the local-list form;
+- the SIBR bridge under rank-sharded storage: rank 0's client pauses
+  training (a kernel-path frame and a python-path frame), trains on one
+  frame per iteration and keeps the last iteration alive, or drops in the
+  middle of a request; every rank renders each frame (on 2 ranks, and on 4
+  in the data 2 x prim 2 layout), every frame the client got equals the
+  sharded render of the gathered state over a local list in one process
+  bit for bit and ``render``'s within 1 in uint8, and every rank reaches
+  the end;
+- ``n_shards > 1`` under a process group raises and names torchrun; a
+  bridge handed to a rank other than 0 under rank-sharded storage raises.
 """
 import functools
 import json
 import os
 import random
+import socket
 import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -66,12 +80,14 @@ from gsplat_tpu_torch.train import checkpoint as tckpt
 from gsplat_tpu_torch.train import loop as tloop
 
 from test_torch_dp import gathered
+from test_torch_viewer import H as VIEW_H, W as VIEW_W, _payload, _recv_exact
 from torch_parity import (CAM_FIELDS, PARAM_FIELDS, SMALL, configs,
-                          make_colmap_scene, make_scene, port_scene, spawn,
-                          state_to_numpy, t2n, to_numpy)
+                          free_port, make_colmap_scene, make_scene,
+                          port_scene, spawn, state_to_numpy, t2n, to_numpy)
 
 TH, TW, CHUNK = SMALL[:3]
 RCFG = dict(tile_h=TH, tile_w=TW, chunk=CHUNK, pairs_per_gaussian=24.0)
+RCFG_CULL = dict(RCFG, row_cull=True)
 N = 2                                   # ranks, and the JAX mesh's parts
 IMG_TOL = dict(rtol=2e-4, atol=2e-5)
 GRAD_TOL = dict(rtol=5e-3, atol=1e-6)
@@ -89,23 +105,25 @@ def _mesh(axis):
     return jmake_mesh(((axis, N),), devices=jax.devices()[:N])
 
 
-def _jcfg():
-    return configs(TH, TW, CHUNK)[0]
+def _jcfg(cull=False):
+    return configs(TH, TW, CHUNK, row_cull=cull)[0]
 
 
 def _g_np(g):
     return to_numpy(g, PARAM_FIELDS)
 
 
-def _render_job(kind, g, cam, W, H, bg, **kw):
+def _render_job(kind, g, cam, W, H, bg, cull=False, **kw):
     return dict(kind=kind, g=_g_np(g), cam=to_numpy(cam, CAM_FIELDS), W=W,
-                H=H, bg=np.full(3, bg, np.float32), rcfg=RCFG, **kw)
+                H=H, bg=np.full(3, bg, np.float32),
+                rcfg=RCFG_CULL if cull else RCFG, **kw)
 
 
-def _step_job(kind, g, cam, W, H, bg, transient, imgs=None):
+def _step_job(kind, g, cam, W, H, bg, transient, imgs=None, cull=False):
     job = dict(kind=kind, state=state_to_numpy(jtrainer.init_state(g, 1)),
                cam=to_numpy(cam, CAM_FIELDS), W=W, H=H,
-               bg=np.full(3, bg, np.float32), rcfg=RCFG, transient=transient)
+               bg=np.full(3, bg, np.float32),
+               rcfg=RCFG_CULL if cull else RCFG, transient=transient)
     if imgs is not None:
         job["imgs"] = imgs
     return job
@@ -188,11 +206,81 @@ def _loop_args(model, src):
             tcfg.RasterizerConfig(), [LOOP_END], [LOOP_END], [LOOP_END])
 
 
+BRIDGE_ITERS = 3
+
+
+def _bridge_client(port, got, done, drop=False):
+    """A SIBR client of rank 0's bridge: it pauses training for a frame of
+    each path (kernel, then python with a scaling modifier), then trains
+    on one frame per iteration and keeps the last iteration alive for two
+    more frames, and closes; with ``drop`` it hangs up in the middle of its
+    third request instead. ``got`` collects the frames' bytes; it gives up
+    connecting once ``done`` is set (the ranks have ended)."""
+    while True:
+        try:
+            s = socket.create_connection(("127.0.0.1", port), timeout=240)
+            break
+        except OSError:
+            if done.is_set():
+                return
+            time.sleep(0.05)
+
+    def frame(**over):
+        # camera 0 of the scene: at (0, 0, -3), looking at the cloud
+        data = json.dumps(_payload(np.eye(3), [0.0, 0.0, 3.0],
+                                   keep_alive=True, **over)).encode()
+        s.sendall(len(data).to_bytes(4, "little") + data)
+        got.append(_recv_exact(s, VIEW_W * VIEW_H * 3))
+        _recv_exact(s, int.from_bytes(_recv_exact(s, 4), "little"))
+
+    with s:
+        frame(train=False)
+        frame(train=False, shs_python=True, rot_scale_python=True,
+              scaling_modifier=0.8)
+        if drop:
+            s.sendall((200).to_bytes(4, "little") + b'{"resolution_x"')
+            return
+        for _ in range(BRIDGE_ITERS + 2):
+            frame(train=True)
+
+
+def _bridge_job(model, src, port, **train_kw):
+    return dict(kind="loop", model=model,
+                model_kw=dict(source_path=src, sh_degree=1),
+                opt_kw=dict(iterations=BRIDGE_ITERS), rcfg_kw={},
+                hooks=([], [], []), gui_port=port,
+                train_kw=dict(dict(shard_gaussians=True, data_parallel=False),
+                              **train_kw))
+
+
+def _with_clients(clients, done, run):
+    """Run ``run()`` while the client threads serve; every client ends."""
+    for t in clients:
+        t.start()
+    try:
+        out = run()
+    finally:
+        done.set()
+        for t in clients:
+            t.join(timeout=60)
+    assert not any(t.is_alive() for t in clients)
+    return out
+
+
 @pytest.fixture(scope="module")
 def ranks(loop_scene):
-    """Every job of this file on one gloo group of 2 ranks."""
+    """Every job of this file on one gloo group of 2 ranks, and the
+    bridge's clients' frames by job."""
     root, src = loop_scene
-    jobs = {}
+    jobs, clients, frames, done = {}, [], {}, threading.Event()
+    for name, drop, transient in (("bridge", False, "ring"),
+                                  ("bridge_drop", True, "replicated")):
+        port = free_port()
+        frames[name] = []
+        clients.append(threading.Thread(
+            target=_bridge_client, args=(port, frames[name], done, drop)))
+        jobs[name] = _bridge_job(str(root / name), src, port,
+                                 shard_transient=transient)
     g, cam, W, H = _slab_case()
     jobs["slab"] = _render_job("slab", g, cam, W, H, 0.25,
                                m_cap=int(g.capacity * 24 / 2))
@@ -229,43 +317,76 @@ def ranks(loop_scene):
                          model_kw=model_kw, opt_kw=dict(iterations=3),
                          rcfg_kw={}, hooks=([], [], []), nan_at=2,
                          train_kw=ranked)
-    return spawn(N, jobs, str(root / "group"))
+    # the same renders, gradients and steps with row culling
+    g, cam, W, H = _slab_case()
+    jobs["slab_cull"] = _render_job("slab", g, cam, W, H, 0.25, cull=True,
+                                    m_cap=int(g.capacity * 24 / 2))
+    g, cam, W, H = _slab_grad_case()
+    jobs["slab_grad_cull"] = _render_job("slab", g, cam, W, H, 0.25,
+                                         cull=True, grad=True)
+    g, cam, W, H = _band_case()
+    jobs["band_cull"] = _render_job("band", g, cam, W, H, 0.3, cull=True,
+                                    grad=True)
+    for tr in TRANSIENTS:
+        g, cam, W, H = _render_case()
+        jobs[f"render_cull_{tr}"] = _step_job("sharded_render", g, cam, W, H,
+                                              0.3, tr, cull=True)
+        g, cam, W, H, imgs = _step_case()
+        jobs[f"step_cull_{tr}"] = _step_job("sharded_step", g, cam, W, H,
+                                            0.0, tr, imgs, cull=True)
+    results = _with_clients(clients, done, lambda: spawn(
+        N, jobs, str(root / "group")))
+    for r in results:
+        r["clients"] = frames
+    return results
+
+
+@pytest.fixture(scope="module")
+def ranks4(loop_scene):
+    """The bridge on 4 ranks in JAX's 2-D layout, data 2 x prim 2."""
+    root, src = loop_scene
+    port, got, done = free_port(), [], threading.Event()
+    client = threading.Thread(target=_bridge_client, args=(port, got, done))
+    results = _with_clients([client], done, lambda: spawn(4, dict(
+        bridge_2d=_bridge_job(str(root / "bridge_2d"), src, port,
+                              data_parallel=True)), str(root / "group4")))
+    return results, got
 
 
 # --------------------------------------------------- the JAX references
 
 @functools.lru_cache(maxsize=None)
-def _jax_slab():
+def _jax_slab(cull=False):
     g, cam, W, H = _slab_case()
     img, inv, ovf = jax.jit(lambda g_, c_: jprim.render_prim_sharded(
-        g_, c_, W, H, jnp.full(3, 0.25), _jcfg(), _mesh("prim"),
+        g_, c_, W, H, jnp.full(3, 0.25), _jcfg(cull), _mesh("prim"),
         m_cap=int(g.capacity * 24 / 2)))(g, cam)
     return np.asarray(img), np.asarray(inv), int(ovf)
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_slab_grad():
+def _jax_slab_grad(cull=False):
     import dataclasses
     g, cam, W, H = _slab_grad_case()
 
     def loss(xyz):
         img, _, _ = jprim.render_prim_sharded(
             dataclasses.replace(g, xyz=xyz), cam, W, H, jnp.full(3, 0.25),
-            _jcfg(), _mesh("prim"))
+            _jcfg(cull), _mesh("prim"))
         return jnp.sum(img ** 2)
     return np.asarray(jax.jit(jax.grad(loss))(g.xyz))
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_band():
+def _jax_band(cull=False):
     g, cam, W, H = _band_case()
     img, inv, pairs, ovf = jax.jit(lambda g_, c_: jtile.render_tile_sharded(
-        g_, c_, W, H, jnp.full(3, 0.3), _jcfg(), _mesh("tile")))(g, cam)
+        g_, c_, W, H, jnp.full(3, 0.3), _jcfg(cull), _mesh("tile")))(g, cam)
     return np.asarray(img), np.asarray(inv), int(pairs), int(ovf)
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_render(transient):
+def _jax_render(transient, cull=False):
     g, cam, W, H = _render_case()
     mesh = _mesh("prim")
     g_sh = jax.tree_util.tree_map(
@@ -273,25 +394,25 @@ def _jax_render(transient):
             mesh, PartitionSpec("prim") if hasattr(x, "shape") and x.ndim >= 1
             and x.shape[0] == g.capacity else PartitionSpec())), g)
     fn = jsh.make_sharded_render(mesh, image_width=W, image_height=H,
-                                 cfg=_jcfg(), transient=transient)
+                                 cfg=_jcfg(cull), transient=transient)
     return jax.tree_util.tree_map(np.asarray, jax.jit(fn)(
         g_sh, cam, jnp.full(3, 0.3)))
 
 
-def _jax_step_of(g, cam, W, H, imgs, transient):
+def _jax_step_of(g, cam, W, H, imgs, transient, cull=False):
     mesh = _mesh("prim")
     step = jsh.make_sharded_train_step(
         mesh, image_width=W, image_height=H, opt=JaxOptimizationConfig(),
-        rcfg=_jcfg(), spatial_lr_scale=1.0, transient=transient)
+        rcfg=_jcfg(cull), spatial_lr_scale=1.0, transient=transient)
     s1, aux = step(jsh.shard_state(jtrainer.init_state(g, 1), mesh), cam,
                    *map(jnp.asarray, imgs), jnp.zeros(3))
     return state_to_numpy(s1), float(aux.loss)
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_step(transient):
+def _jax_step(transient, cull=False):
     g, cam, W, H, imgs = _step_case()
-    return _jax_step_of(g, cam, W, H, imgs, transient)
+    return _jax_step_of(g, cam, W, H, imgs, transient, cull)
 
 
 # ------------------------------------------------------------ the tests
@@ -328,13 +449,14 @@ def test_slab_gradients_over_ranks_match_jax(ranks):
     assert np.abs(want).max() > 1e-2
 
 
-def _band_single_grad():
+def _band_single_grad(cull=False):
     import dataclasses
     g, cam, W, H = _band_case()
     tg, tcam = port_scene(g, cam)
     xyz = tg.xyz.detach().requires_grad_()
     out = tras.render(dataclasses.replace(tg, xyz=xyz), tcam, W, H,
-                      torch.full((3,), 0.3), configs(TH, TW, CHUNK)[1])
+                      torch.full((3,), 0.3),
+                      configs(TH, TW, CHUNK, row_cull=cull)[1])
     (torch.clamp(out.image, 0.0, 1.0) ** 2).sum().backward()
     return t2n(xyz.grad)
 
@@ -540,15 +662,119 @@ def test_shards_under_a_process_group_raises(monkeypatch, tmp_path):
 
 
 def test_bridge_under_rank_sharded_storage_raises(monkeypatch, tmp_path):
-    """Every rank would have to render the client's frame: rank 0's bridge
-    is broadcast to the ranks (``Hold.from_rank0``), and each raises."""
-    class Hold:
-        def from_rank0(self, flag):
-            return flag
-    monkeypatch.setattr(tmesh, "world", lambda: (0, 2))
-    monkeypatch.setattr(tmesh, "Hold", Hold)
-    with pytest.raises(ValueError, match="not served under rank-sharded"):
+    """Rank 0 alone owns the bridge's socket, also under rank-sharded
+    storage: a bridge handed to another rank raises before anything is
+    read or written."""
+    monkeypatch.setattr(tmesh, "world", lambda: (1, 2))
+    with pytest.raises(ValueError, match="served by rank 0 alone"):
         tloop.train(*_loop_args(str(tmp_path / "m"), str(tmp_path)),
                     shard_gaussians=True, network_gui_server=object(),
                     device="cpu")
     assert not any(tmp_path.iterdir())
+
+
+# ------------------------------------------------- row culling over ranks
+
+def test_culled_slab_and_band_over_ranks_match_jax(ranks):
+    res = _local_bits(ranks, "slab_cull")["ranks"]
+    img, inv, ovf = _jax_slab(cull=True)
+    assert res["overflow"] == ovf == 0
+    np.testing.assert_allclose(res["image"], img, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(res["invdepth"], inv, rtol=0, atol=1e-3)
+    _local_bits(ranks, "slab_grad_cull")
+    want = _jax_slab_grad(cull=True)
+    for r in ranks:
+        got = r["slab_grad_cull"]
+        np.testing.assert_allclose(got["ranks"]["grad"], want, rtol=1e-3,
+                                   atol=5e-4)
+        np.testing.assert_allclose(got["ranks"]["grad"],
+                                   got["local"]["grad"], **GRAD_TOL)
+    res = _local_bits(ranks, "band_cull")["ranks"]
+    img, inv, _, ovf = _jax_band(cull=True)
+    assert res["overflow"] == ovf == 0
+    np.testing.assert_allclose(res["image"], img, **IMG_TOL)
+    np.testing.assert_allclose(res["invdepth"], inv, **IMG_TOL)
+    want = _band_single_grad(cull=True)
+    for r in ranks:
+        np.testing.assert_allclose(r["band_cull"]["ranks"]["grad"], want,
+                                   **GRAD_TOL)
+
+
+@pytest.mark.parametrize("transient", TRANSIENTS)
+def test_culled_sharded_render_and_step_over_ranks_match_jax(ranks,
+                                                             transient):
+    job = f"render_cull_{transient}"
+    want = _jax_render(transient, cull=True)
+    _local_bits(ranks, job)
+    got = ranks[0][job]["ranks"]
+    assert got["overflow"] == 0 and got["num_pairs"] == int(want.num_pairs)
+    assert got["num_pairs"] < ranks[0][f"render_{transient}"]["ranks"][
+        "num_pairs"]
+    np.testing.assert_allclose(got["image"], want.image, rtol=1e-6,
+                               atol=1e-7)
+    job = f"step_cull_{transient}"
+    want, loss = _jax_step(transient, cull=True)
+    for res in ranks:
+        assert res[job]["ranks"]["loss"] == res[job]["local"]["loss"]
+        assert res[job]["ranks"]["overflow"] == 0
+    items = _gathered_step(ranks, job)
+    np.testing.assert_allclose(ranks[0][job]["ranks"]["loss"], loss,
+                               rtol=1e-6)
+    np.testing.assert_allclose(items[".gaussians.xyz"],
+                               want["gaussians"]["xyz"], rtol=1e-3,
+                               atol=5e-4)
+    np.testing.assert_array_equal(items[".stats.denom"],
+                                  want["stats"]["denom"])
+    np.testing.assert_allclose(items[".stats.xyz_gradient_accum"],
+                               want["stats"]["xyz_gradient_accum"],
+                               rtol=1e-4, atol=1e-8)
+
+
+# ------------------------------------- the bridge under rank-sharded storage
+
+def _assert_bridge_frames(results, job, client_frames, n_ranks):
+    """Every frame the client got is the one rank 0 rendered with every
+    rank, equal to the one-process sharded render of the gathered state bit
+    for bit and to ``render``'s within 1 in uint8; every rank trained to
+    the end."""
+    frames = results[0][job]["frames"]
+    assert len(frames) == len(client_frames)
+    for f, raw in zip(frames, client_frames):
+        np.testing.assert_array_equal(
+            np.frombuffer(raw, np.uint8).reshape(f["client"].shape),
+            f["client"])
+        np.testing.assert_array_equal(f["client"], f["local"])
+        assert np.abs(f["client"].astype(int)
+                      - f["single"].astype(int)).max() <= 1
+        assert f["client"].std() > 0
+    assert [f["sh_python"] for f in frames[:2]] == [False, True]
+    for r in range(n_ranks):
+        if r:
+            assert results[r][job]["frames"] is None
+            assert results[r][job]["polls"] == []
+        assert dict(results[r][job]["state"])[".step"] == BRIDGE_ITERS
+    return frames
+
+
+def test_bridge_over_ranks_serves_pause_and_keep_alive(ranks):
+    frames = _assert_bridge_frames(ranks, "bridge",
+                                   ranks[0]["clients"]["bridge"], N)
+    # 2 paused, one a training iteration, 2 more keeping the last alive
+    assert len(frames) == 2 + BRIDGE_ITERS + 2
+    assert frames[0]["rows"] == [2048, 2048]
+    assert [it for it, _ in ranks[0]["bridge"]["polls"]] == [1, 2, 3]
+
+
+def test_bridge_over_ranks_survives_a_client_that_drops(ranks):
+    frames = _assert_bridge_frames(ranks, "bridge_drop",
+                                   ranks[0]["clients"]["bridge_drop"], N)
+    assert len(frames) == 2
+    assert [it for it, _ in ranks[0]["bridge_drop"]["polls"]] == [1, 2, 3]
+
+
+def test_bridge_over_ranks_in_the_2d_layout(ranks4):
+    results, got = ranks4
+    frames = _assert_bridge_frames(results, "bridge_2d", got, 4)
+    assert len(frames) == 2 + BRIDGE_ITERS + 2
+    assert frames[0]["rows"] == [2048, 2048]
+

@@ -43,7 +43,12 @@ got to ``<dir>/rank<r>.pkl``. A job:
   under ``--debug``, and the loop's ``FloatingPointError`` is the job's
   result; with ``gui_port`` rank 0 binds the SIBR bridge there, waits for
   the test's client before it trains, and records how long each poll held
-  it; with ``slow_save`` rank 0's saves take that many seconds longer.
+  it; under rank-sharded storage (``train_kw`` ``shard_gaussians``) every
+  rank records each frame it renders with the bridge, and rank 0, with
+  every rank's rows of the state at each frame gathered, renders the frame
+  again in this process: through the sharded render over a local list of
+  its prim line's shards, and through ``render``; with ``slow_save`` rank
+  0's saves take that many seconds longer.
 """
 import dataclasses
 import os
@@ -51,6 +56,7 @@ import pickle
 import random
 import sys
 import time
+from types import SimpleNamespace
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # the loop's telemetry mirrors its scalars to TensorBoard when it imports,
@@ -60,6 +66,7 @@ sys.modules["torch.utils.tensorboard"] = None
 
 from datetime import timedelta  # noqa: E402
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from gsplat_tpu_torch import config as tcfg  # noqa: E402
@@ -73,6 +80,7 @@ from gsplat_tpu_torch.train import checkpoint as ckpt_lib  # noqa: E402
 from gsplat_tpu_torch.train import densify as densify_lib  # noqa: E402
 from gsplat_tpu_torch.train import loop as tloop  # noqa: E402
 from gsplat_tpu_torch.train import trainer  # noqa: E402
+from gsplat_tpu_torch.viewer import network_gui  # noqa: E402
 from gsplat_tpu_torch.viewer.network_gui import NetworkGUI  # noqa: E402
 
 TIMEOUT = timedelta(seconds=120)  # a collective waits no longer for a rank
@@ -356,11 +364,24 @@ def run_loop(job, rank):
         assert gui.conn is not None, "no viewer client"
         poll = gui.poll
 
-        def timed_poll(state, scene, pipe, rcfg, bg, iteration, *a):
+        def timed_poll(state, scene, pipe, rcfg, bg, iteration, *a, **kw):
             t = time.monotonic()
-            poll(state, scene, pipe, rcfg, bg, iteration, *a)
+            poll(state, scene, pipe, rcfg, bg, iteration, *a, **kw)
             polls.append((iteration, time.monotonic() - t))
         gui.poll = timed_poll
+    ranked_bridge = (job.get("gui_port")
+                     and job.get("train_kw", {}).get("shard_gaussians"))
+    frames, render_request = [], network_gui.render_request
+    if ranked_bridge:
+        def recorded(state, req, rcfg, pipe, bg, device, **kw):
+            image = render_request(state, req, rcfg, pipe, bg, device, **kw)
+            frames.append(dict(
+                req=req, rcfg=rcfg, pipe=pipe, bg=torch.as_tensor(bg).numpy(),
+                rows={k: getattr(state.gaussians, k).numpy().copy()
+                      for k in gm.TENSOR_FIELDS},
+                sh=state.gaussians.active_sh_degree, image=image.numpy()))
+            return image
+        network_gui.render_request = recorded
     save = tloop.Scene.save
 
     def slow_save(self, *a, **kw):
@@ -383,6 +404,8 @@ def run_loop(job, rank):
             quiet=True, device="cpu", network_gui_server=gui,
             **{"data_parallel": True, **job.get("train_kw", {})})
         out.update(state=_items(state), noise_left=len(noise))
+        if ranked_bridge:
+            out["frames"] = _bridge_frames(frames, job, rank)
     except FloatingPointError as e:
         if "nan_at" not in job:
             raise
@@ -392,8 +415,42 @@ def run_loop(job, rank):
         sharded.make_sharded_train_step = make_sharded
         trainer.densify_step = densify
         tloop.Scene.save = save
+        network_gui.render_request = render_request
         if gui is not None:
             gui.close()
+    return out
+
+
+def _bridge_frames(frames, job, rank):
+    """Rank 0: every bridge frame as the client got it (uint8), as the
+    sharded render of the gathered state over a local list of rank 0's
+    prim line's shards renders it (uint8) and as ``render`` does (uint8),
+    with the request's python toggles; None elsewhere."""
+    world = torch.distributed.get_world_size()
+    every = [None] * world
+    torch.distributed.all_gather_object(every, frames)
+    if rank:
+        return None
+    n_prim = world // 2 if job["train_kw"].get("data_parallel") else world
+    out = []
+    for i, f in enumerate(every[0]):
+        rows = [every[r][i]["rows"] for r in range(n_prim)]
+        g = gm.from_numpy(dict(
+            {k: np.concatenate([x[k] for x in rows])
+             for k in gm.TENSOR_FIELDS}, active_sh_degree=f["sh"]),
+            device="cpu")
+        args = (SimpleNamespace(gaussians=g), f["req"], f["rcfg"], f["pipe"], torch.tensor(f["bg"]),
+                "cpu")
+        local = network_gui.render_request(
+            *args, parts=n_prim,
+            transient=job["train_kw"].get("shard_transient", "replicated"))
+        single = network_gui.render_request(*args)
+        out.append(dict(
+            client=np.asarray(network_gui.frame_bytes(torch.tensor(
+                f["image"]))), local=np.asarray(network_gui.frame_bytes(
+                    local)), single=np.asarray(network_gui.frame_bytes(
+                        single)), sh_python=f["req"].sh_python,
+            rows=[len(x["xyz"]) for x in rows]))
     return out
 
 
