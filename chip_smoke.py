@@ -120,7 +120,22 @@ Phases, each printing its own line:
    checkpoint its file, rank 1 writing nothing; exact launches per rank;
    (e) the same loop over 2 ranks (ring) under rank 0's SIBR bridge, every
    rank rendering each frame, each bit for bit the one-process sharded
-   render of the gathered rows.
+   render of the gathered rows;
+12. the synthetic-scene validation path (``gsplat_tpu_torch/tools``): (a)
+   the scene generator at the soak's size (12,000 gaussians, 24 cameras,
+   512x384, seed 7), timed; (b) the training drive on the card, 512x256,
+   300 iterations, its +3 dB asserts on the train and held-out views
+   failing the run, with exact launches; (c) a 1,000-iteration soak
+   through the train, render and metrics CLIs (each its own process) on
+   (a)'s scene, 5 densify events and a held-out evaluation at 1,000,
+   failing unless every stage exits 0, the live count changes at exactly
+   the densify iterations and the train views gain 3 dB over the initial
+   model (the held-out views are reported: on this scene they lose PSNR
+   over the reference regime's first 1,000 iterations, as (d) shows);
+   (d) the same regime on the generator's scene at 128x96 (3,000
+   gaussians) through the train CLI for 1,000 iterations, its held-out
+   PSNR at 100, 200, 500 and 1,000 held to what the JAX package's
+   train.py prints on that scene on a CPU.
 Then a ``kernels`` JSON line with one object per kernel of the KERNELS
 table, the nvidia-smi line, and a final JSON line.
 
@@ -1689,6 +1704,62 @@ def cull_kernels(e0, e1, cfg, rng):
     return out
 
 
+def cull_turns(g, cam, gt, W, H, cfg, state):
+    """Frames and train steps of ``g`` from ``cam`` (W x H, target ``gt``)
+    with ``cfg`` and its culled form, in turns (off, on, on, off, times
+    CULL_ROUNDS; host clock, synchronised), then one profiled frame and
+    step of each. Returns (host median ms {"frame": [off, on], "step":
+    [off, on]}, device busy ms by "frame off" ... "step on", the culled
+    calls' launches)."""
+    dev = gt.device
+    ccfg = culled(cfg)
+    opt = OptimizationConfig()
+    bg = torch.zeros(3, device=dev)
+    ones = torch.ones((1, H, W), device=dev)
+    zeros = torch.zeros((1, H, W), device=dev)
+
+    def frame(c):
+        with torch.no_grad():
+            return rasterize.render(g, cam, W, H, bg, c)
+
+    def step(c):
+        return trainer.train_step(
+            state, cam, gt, ones, zeros, zeros, bg, image_width=W,
+            image_height=H, opt=opt, rcfg=c, spatial_lr_scale=1.0,
+            antialiasing=False, use_sparse_adam=False, train_test_exp=False,
+            use_depth=False)
+
+    culled_calls = LaunchDelta()
+    ms = {"frame": ([], []), "step": ([], [])}
+    for i in (0, 1, 1, 0) * CULL_ROUNDS:
+        c = (cfg, ccfg)[i]
+        with contextlib.ExitStack() as stack:
+            if i:
+                stack.enter_context(culled_calls)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = frame(c)
+            torch.cuda.synchronize()
+            ms["frame"][i].append((time.perf_counter() - t) * 1e3)
+            check(int(out.overflow) == 0, "row_cull frame overflow")
+            t = time.perf_counter()
+            _, aux = step(c)
+            torch.cuda.synchronize()
+            ms["step"][i].append((time.perf_counter() - t) * 1e3)
+            check(int(aux.overflow) == 0 and np.isfinite(float(aux.loss)),
+                  "row_cull step")
+    busy = {}
+    for i, c in ((0, cfg), (1, ccfg)):
+        tag = ("off", "on")[i]
+        busy[f"frame {tag}"] = profile_call(f"one frame, row_cull {tag}",
+                                            lambda: frame(c))
+        busy[f"step {tag}"] = profile_call(
+            f"one train step, row_cull {tag}", lambda: step(c), n_top=15)
+    med = {k: [float(np.median(v[0])), float(np.median(v[1]))]
+           for k, v in ms.items()}
+    return med, busy, culled_calls.total
+
+
 def row_cull_phase(g, cam, gt, cfg, rng):
     """Phase 5b. Returns (the culled calls' launches, the kernels' numbers
     on the culled list)."""
@@ -1733,45 +1804,12 @@ def row_cull_phase(g, cam, gt, cfg, rng):
               f"row_cull gradient of {k} differs by {grad_err[k]}")
 
     # frames and steps in turns, the culled ones' launches counted
-    culled_calls = LaunchDelta()
-    ms = {"frame": ([], []), "step": ([], [])}
-    for i in (0, 1, 1, 0) * CULL_ROUNDS:
-        c = (cfg, ccfg)[i]
-        with contextlib.ExitStack() as stack:
-            if i:
-                stack.enter_context(culled_calls)
-            with torch.no_grad():
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                out = rasterize.render(g, cam, W, H, bg, c)
-                torch.cuda.synchronize()
-                ms["frame"][i].append((time.perf_counter() - t) * 1e3)
-            check(int(out.overflow) == 0, "row_cull frame overflow")
-            t = time.perf_counter()
-            _, aux = train(state, cam, gt, c, opt)
-            torch.cuda.synchronize()
-            ms["step"][i].append((time.perf_counter() - t) * 1e3)
-            check(int(aux.overflow) == 0 and np.isfinite(float(aux.loss)),
-                  "row_cull step")
+    med, busy, culled_total = cull_turns(g, cam, gt, W, H, cfg, state)
     n = 2 * CULL_ROUNDS
     want = {name: k["per_step"] * n for name, k in KERNELS.items()}
     want["composite_fwd"] += n                  # the frames
-    check(culled_calls.total == want, f"{n} culled frames and {n} culled "
-          f"steps launched {culled_calls.total}, expected {want}")
-    busy = {}
-    for i, c in ((0, cfg), (1, ccfg)):
-        tag = ("off", "on")[i]
-
-        def frame():
-            with torch.no_grad():
-                rasterize.render(g, cam, W, H, bg, c)
-        busy[f"frame {tag}"] = profile_call(f"one frame, row_cull {tag}",
-                                            frame)
-        busy[f"step {tag}"] = profile_call(
-            f"one train step, row_cull {tag}",
-            lambda: train(state, cam, gt, c, opt), n_top=15)
-    med = {k: [float(np.median(v[0])), float(np.median(v[1]))]
-           for k, v in ms.items()}
+    check(culled_total == want, f"{n} culled frames and {n} culled "
+          f"steps launched {culled_total}, expected {want}")
     print(f"row_cull {W}x{H}, {N_GAUSS} gaussians, SH 3 (phase 5's scene): "
           f"pairs {n_rect} -> {n_cull} ({n_cull / n_rect:.4f}; {n_drop} "
           f"dropped, every one a subset pair below the alpha floor at every "
@@ -1787,8 +1825,8 @@ def row_cull_phase(g, cam, gt, cfg, rng):
           f"off x {CULL_ROUNDS}); device busy ms frame "
           f"{busy['frame off']:.3f} / {busy['frame on']:.3f}, step "
           f"{busy['step off']:.3f} / {busy['step on']:.3f}; launches of the "
-          f"culled calls {culled_calls.total}", flush=True)
-    return culled_calls.total, numbers
+          f"culled calls {culled_total}", flush=True)
+    return culled_total, numbers
 
 
 def row_cull_split_phase(state, cam, gt, cfg, scfg, m_cap):
@@ -4192,6 +4230,165 @@ def nccl_main():
         flush=True)
 
 
+# --------------------------------------------------------------- phase 12
+# The synthetic-scene validation path: the scene generator at the soak's
+# size, the training drive at its card sizes and a short soak through the
+# CLIs. The drive's launches: one step a train iteration, and one forward
+# for each of its 12 ground-truth renders and each of its 2 x 12 PSNR
+# renders.
+SYNTH_SCENE = dict(n_gaussians=12_000, n_cams=24, width=512, height=384)
+SYNTH_SOAK_ITERS = 1000
+SYNTH_DENSIFY = [600, 700, 800, 900, 1000]   # from 500, every 100
+SYNTH_DRIVE_ITERS = 300
+SYNTH_TRAIN_GAIN_DB = 3.0    # the soak's train views, as the drive's bar
+SYNTH_DRIVE_RENDERS = 12 + 2 * 12
+# (d) the reference regime's first 1,000 iterations on the generator's
+# scene at 128x96 (3,000 gaussians, 24 cameras, seed 7) through the train
+# CLI, held to the held-out PSNR the JAX package's train.py prints on the
+# same scene on a CPU (GSPLAT_PLATFORM=cpu; `python
+# tools/make_synthetic_scene.py --out <d> --scene soak --n_gaussians 3000
+# --n_cams 24 --width 128 --height 96 --seed 7 --device cpu`, then `python
+# train.py -s <d>/soak -m <model> --eval --disable_viewer --iterations 1000
+# --test_iterations 100 200 500 1000`), within SYNTH_REF_TOL_DB: 0.05 dB
+# before the first densify event (600), where only rounding parts the card
+# from the CPU (there the port's train_torch.py prints JAX's figures to the
+# last digit), and 2 dB after five, whose split draws differ between the
+# packages: on a CPU the port ends at 14.093 with its own draws and at
+# 15.289 with JAX's (tests/train_with_jax_draws.py). The initial model
+# scores 16.174 (soak_30k.model_psnr): the reference regime loses held-out
+# PSNR on this scene.
+SYNTH_REF_SCENE = dict(n_gaussians=3000, n_cams=24, width=128, height=96)
+SYNTH_REF_JAX_PSNR = {100: 17.864, 200: 17.663, 500: 16.016, 1000: 15.276}
+SYNTH_REF_TOL_DB = {100: 0.05, 200: 0.05, 500: 0.05, 1000: 2.0}
+
+
+def synthetic_phase(dev, root):
+    """Phase 12: (a) the generator, (b) the drive with exact launches, (c)
+    the soak of SYNTH_SOAK_ITERS iterations. Returns (b)'s launches."""
+    import contextlib
+    import shutil
+
+    from gsplat_tpu_torch.tools import (drive_train, make_synthetic_scene,
+                                        soak_30k)
+
+    out = os.path.join(root, "soak")
+    shutil.rmtree(out, ignore_errors=True)
+    device = ["--device", dev.type]
+    scene_args = [x for k, v in SYNTH_SCENE.items() for x in (f"--{k}",
+                                                               str(v))]
+    t = time.perf_counter()
+    run_cli(make_synthetic_scene.main, [
+        "--out", os.path.join(out, "scene"), "--scene", "soak", "--seed",
+        "7", *scene_args, *device])
+    gen_s = time.perf_counter() - t
+    pngs = sorted(os.listdir(os.path.join(out, "scene", "soak", "images")))
+    check(len(pngs) == SYNTH_SCENE["n_cams"], f"generator wrote {pngs}")
+    from PIL import Image
+    img = np.asarray(Image.open(os.path.join(out, "scene", "soak", "images",
+                                             pngs[0])), np.float32)
+    check(img.shape == (SYNTH_SCENE["height"], SYNTH_SCENE["width"], 3)
+          and img.std() > 5.0, f"generator image {img.shape} blank")
+    print(f"synthetic scene: {SYNTH_SCENE['n_gaussians']} gaussians, "
+          f"{SYNTH_SCENE['n_cams']} cameras at {SYNTH_SCENE['width']}x"
+          f"{SYNTH_SCENE['height']} in {gen_s:.2f} s (generator, one "
+          f"process, the card)", flush=True)
+
+    reset_launches()
+    r = drive_train.main([str(SYNTH_DRIVE_ITERS), *device])  # asserts +3 dB
+    launches = read_launches()
+    for name in KERNELS:
+        want = {"composite_fwd": SYNTH_DRIVE_ITERS + SYNTH_DRIVE_RENDERS,
+                "composite_bwd": SYNTH_DRIVE_ITERS,
+                "ssim_fwd": SYNTH_DRIVE_ITERS,
+                "ssim_bwd": SYNTH_DRIVE_ITERS}.get(name, 0)
+        check(launches[name] == want, f"{name} launched {launches[name]} "
+              f"times in the drive, expected {want}")
+    check(r["overflow"] == 0, f"drive overflow {r['overflow']}")
+    print(f"drive_train on the card, 512x256, {SYNTH_DRIVE_ITERS} iters: "
+          f"train PSNR {r['p0_train']:.3f} -> {r['p1_train']:.3f} dB, "
+          f"held-out {r['p0_test']:.3f} -> {r['p1_test']:.3f} dB, "
+          f"{r['it_s']:.2f} it/s, N {r['n']}, launches {launches}",
+          flush=True)
+
+    # the soak's stages are processes of their own; their lines go to a
+    # log, the summary here. LPIPS without published weights: NaN
+    weights = os.environ.pop("GSPLAT_LPIPS_WEIGHTS", None)
+    try:
+        with open(os.path.join(root, "soak_stdout.log"), "w") as f, \
+                contextlib.redirect_stdout(f):
+            soak = soak_30k.main([str(SYNTH_SOAK_ITERS), out, *device])
+    finally:
+        if weights is not None:
+            os.environ["GSPLAT_LPIPS_WEIGHTS"] = weights
+    with open(os.path.join(out, "model", "training_log.jsonl")) as f:
+        log = [json.loads(x) for x in f]
+    evals = [e for e in log if soak_30k.TEST_PSNR in e]
+    check([e["step"] for e in evals] == [SYNTH_SOAK_ITERS],
+          f"soak evaluations at {[e['step'] for e in evals]}")
+    # the live count changes only in a densify event: at each of the five
+    n_at = {e["step"]: e["total_points"] for e in log if "total_points" in e}
+    changed = [i for i in range(2, SYNTH_SOAK_ITERS + 1)
+               if n_at[i] != n_at[i - 1]]
+    check(changed == SYNTH_DENSIFY, f"the live count changed at {changed}, "
+          f"the densify events are at {SYNTH_DENSIFY}")
+    # the views it trains on gain SYNTH_TRAIN_GAIN_DB; the held-out views
+    # lose PSNR over the reference regime's first 1,000 iterations on the
+    # generator's scene (at 128x96 the JAX package's train.py does: (d)
+    # holds the port to it there), so here they are reported and held
+    # finite
+    p_init, p_final = soak["p_init"], soak["p_final"]
+    p_1000 = evals[0][soak_30k.TEST_PSNR]
+    check(p_final["train"] > p_init["train"] + SYNTH_TRAIN_GAIN_DB,
+          f"soak train-view PSNR {p_init['train']} -> {p_final['train']}")
+    check(all(np.isfinite([p_1000, p_final["test"]])),
+          f"soak held-out PSNR {p_1000}, {p_final['test']}")
+    for line in soak["lines"]:
+        print(f"soak {SYNTH_SOAK_ITERS}: {line}", flush=True)
+
+    return launches
+
+
+def synthetic_reference_phase(dev, root):
+    """Phase 12 (d): the 128x96 soak's held-out PSNR against the JAX
+    package's at each of SYNTH_REF_JAX_PSNR's iterations."""
+    import shutil
+
+    from gsplat_tpu_torch.cli import train as train_cli
+    from gsplat_tpu_torch.tools import make_synthetic_scene, soak_30k
+
+    device = ["--device", dev.type]
+    ref = os.path.join(root, "soak_ref")
+    shutil.rmtree(ref, ignore_errors=True)
+    run_cli(make_synthetic_scene.main, [
+        "--out", os.path.join(ref, "scene"), "--scene", "soak", "--seed",
+        "7", *[x for k, v in SYNTH_REF_SCENE.items()
+               for x in (f"--{k}", str(v))], *device])
+    t = time.perf_counter()
+    run_cli(train_cli.main, [
+        "-s", os.path.join(ref, "scene", "soak"), "-m",
+        os.path.join(ref, "model"), "--eval", "--quiet", "--disable_viewer",
+        "--iterations", str(max(SYNTH_REF_JAX_PSNR)), "--test_iterations",
+        *map(str, SYNTH_REF_JAX_PSNR), *device])
+    ref_s = time.perf_counter() - t
+    with open(os.path.join(ref, "model", "training_log.jsonl")) as f:
+        got = {e["step"]: e[soak_30k.TEST_PSNR] for e in map(json.loads, f)
+               if soak_30k.TEST_PSNR in e}
+    check(sorted(got) == sorted(SYNTH_REF_JAX_PSNR),
+          f"reference soak evaluations at {sorted(got)}")
+    size = (f"{SYNTH_REF_SCENE['width']}x{SYNTH_REF_SCENE['height']} "
+            f"({SYNTH_REF_SCENE['n_gaussians']} gaussians)")
+    for it, want in SYNTH_REF_JAX_PSNR.items():
+        tol = SYNTH_REF_TOL_DB[it]
+        check(abs(got[it] - want) <= tol, f"held-out PSNR {got[it]} at "
+              f"{it} on the {size} scene, the JAX package's {want} "
+              f"(within {tol} dB)")
+    print(f"soak {size}, {max(got)} iterations through "
+          f"the train CLI in {ref_s:.1f} s: held-out PSNR "
+          + ", ".join(f"{it}: {got[it]:.3f} (JAX on a CPU "
+                      f"{SYNTH_REF_JAX_PSNR[it]:.3f})" for it in sorted(got)),
+          flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing run")
@@ -4382,6 +4579,11 @@ def main():
                                                n_eval=n_eval)
     dp_2d_launches = two_d_phase(run_a["src"], root)
 
+    # ---- phase 12: the synthetic-scene validation path
+    torch.cuda.empty_cache()
+    synth_launches = synthetic_phase(dev, root)
+    synthetic_reference_phase(dev, root)
+
     kernels = []
     for name, k in KERNELS.items():
         by_path = {"render": render_launches[name],
@@ -4400,7 +4602,8 @@ def main():
                    "loop_ranks": loop_rank_launches[name],
                    "row_cull": cull_launches[name],
                    "split_cull": split_cull_launches[name],
-                   "bridge_ranks": bridge_rank_launches[name]}
+                   "bridge_ranks": bridge_rank_launches[name],
+                   "synthetic": synth_launches[name]}
         check(any(by_path.values()), f"{name} was launched on no path")
         n = numbers[name]
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"):

@@ -381,7 +381,8 @@ def train(dataset: ModelConfig, opt: OptimizationConfig, pipe: PipelineConfig,
                               reason=f"non-finite loss {loss_now}")
             raise FloatingPointError(
                 f"[iter {iteration}] non-finite loss {loss_now}; step inputs "
-                f"dumped to {path}")
+                f"dumped to {path} (replay with python -m "
+                f"gsplat_tpu_torch.tools.debug_nan --snapshot {path})")
 
         # ---- densification, capacity growth, opacity reset ----
         if iteration < opt.densify_until_iter:
@@ -483,6 +484,11 @@ def train(dataset: ModelConfig, opt: OptimizationConfig, pipe: PipelineConfig,
             hold.wait()
 
     scene.gaussians = state.gaussians
+    if dev.type == "cuda":           # this process's allocator peaks, MiB
+        telemetry.scalars(
+            opt.iterations,
+            peak_allocated_mib=torch.cuda.max_memory_allocated(dev) / 2**20,
+            peak_reserved_mib=torch.cuda.max_memory_reserved(dev) / 2**20)
     telemetry.close()
     if ckpt_mngr is not None:
         ckpt_mngr.close()

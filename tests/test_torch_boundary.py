@@ -1,9 +1,12 @@
 """The port's import boundary and device contract.
 
-gsplat_tpu_torch (the native loader and the depth-scale CLI among its
-modules), chip_smoke.py, the A/B scripts (compositor_ab.py,
-ssim_ab.py), rank0_writes.py and the port's root CLIs (``*_torch.py``) import neither JAX
-nor anything of the gsplat_tpu package, and
+gsplat_tpu_torch (the native loader, the depth-scale CLI and the
+validation tools of ``gsplat_tpu_torch/tools`` among its modules),
+chip_smoke.py, the A/B scripts (compositor_ab.py, ssim_ab.py,
+row_cull_ab.py),
+rank0_writes.py and the port's root CLIs (``*_torch.py``) import neither
+JAX, nor anything of the gsplat_tpu package, nor the repo's top-level
+``tools`` package, and
 the port's entry points run on CUDA unless the caller asks for the CPU:
 without CUDA they raise instead of carrying on.
 """
@@ -25,12 +28,11 @@ names = [m.name for m in pkgutil.walk_packages(gsplat_tpu_torch.__path__,
                                                "gsplat_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
-import chip_smoke, compositor_ab, ssim_ab, rank0_writes
+import chip_smoke, compositor_ab, ssim_ab, rank0_writes, row_cull_ab
 import metrics_torch, full_eval_torch, convert_torch, view_torch
 import make_depth_scale_torch
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith("jax.") or m == "gsplat_tpu"
-             or m.startswith("gsplat_tpu."))
+             if m.split(".")[0] in ("jax", "gsplat_tpu", "tools"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -66,7 +68,13 @@ def test_port_imports_no_jax_and_no_gsplat_tpu():
                 "gsplat_tpu_torch.cli.convert", "gsplat_tpu_torch.cli.view",
                 "gsplat_tpu_torch.viewer.network_gui",
                 "gsplat_tpu_torch.viewer.web", "gsplat_tpu_torch.native",
-                "gsplat_tpu_torch.cli.make_depth_scale"):
+                "gsplat_tpu_torch.cli.make_depth_scale",
+                "gsplat_tpu_torch.tools.make_synthetic_scene",
+                "gsplat_tpu_torch.tools.drive_train",
+                "gsplat_tpu_torch.tools.drive_render",
+                "gsplat_tpu_torch.tools.soak_30k",
+                "gsplat_tpu_torch.tools.debug_nan",
+                "gsplat_tpu_torch.tools.analyze_nan"):
         assert mod in res["modules"]
 
 
@@ -162,3 +170,21 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         network_gui.NetworkGUI("127.0.0.1", 0)
     network_gui.NetworkGUI("127.0.0.1", 0, device="cpu").close()
+
+    # the validation tools: each raises before it writes anything
+    from gsplat_tpu_torch.tools import (analyze_nan, debug_nan, drive_render,
+                                        drive_train, make_synthetic_scene,
+                                        soak_30k)
+    out = tmp_path / "tools_out"
+    tool_argv = [
+        (make_synthetic_scene.main, ["--out", str(out)]),
+        (drive_train.main, []),
+        (drive_render.main, []),
+        (soak_30k.main, ["10", str(out)]),
+        (debug_nan.main, ["--repro", str(out / "r.npz")]),
+        (analyze_nan.main, ["--repro", str(out / "r.npz")]),
+    ]
+    for main, argv in tool_argv:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(argv)
+    assert not out.exists()

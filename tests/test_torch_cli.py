@@ -106,12 +106,15 @@ def test_debug_snapshot_on_nonfinite_loss(tmp_path, rng, monkeypatch):
         return s, aux._replace(loss=torch.tensor(float("nan")))
 
     monkeypatch.setattr(ttrainer, "train_step", poisoned_step)
-    with pytest.raises(FloatingPointError, match="non-finite loss"):
+    with pytest.raises(FloatingPointError, match="non-finite loss") as err:
         train_cli.main(["-s", src, "-m", model, "--iterations", "2",
                         "--debug", "--test_iterations", "-1",
                         "--save_iterations", "-1", *BASE])
     snaps = glob.glob(os.path.join(model, "snapshot_iter*.npz"))
     assert [os.path.basename(p) for p in snaps] == ["snapshot_iter1.npz"]
+    # the error names the replay tool and the snapshot
+    assert (f"replay with python -m gsplat_tpu_torch.tools.debug_nan "
+            f"--snapshot {snaps[0]}") in str(err.value)
     with np.load(snaps[0]) as data:
         port = dict(data)
     assert str(port["reason"]) == "non-finite loss nan"
