@@ -136,6 +136,22 @@ Phases, each printing its own line:
    gaussians) through the train CLI for 1,000 iterations, its held-out
    PSNR at 100, 200, 500 and 1,000 held to what the JAX package's
    train.py prints on that scene on a CPU.
+13. the measurement entry points (``bench_torch.py``,
+   ``gsplat_tpu_torch/tools``): (a) bench.py's train-step pixels/s at
+   1920x1080 on its 200k scene in this process, with ``--row_cull`` through
+   ``bench_torch.py`` as a process, and with ``--ply`` on 12 (c)'s trained
+   model, each line's metric checked and the step kernels' launches exact
+   (2 right-sizing steps + 3 windows of 7); (b) the stage profiler, host,
+   event and busy ms of every stage, the compositor stages' launches
+   exact; (c) the tile sweep: 32x32, 16x16, 8x32, 16x32, 16x64 at chunk
+   64 and 32x32 at chunk 32 and 256, each right-sized, its compositor pair
+   timed on the whole frame and (but the default) held to its plain
+   versions (the forward on the frame, the backward on 16 tiles), the
+   steps timed in turns, one profiled; 32x64 refused by the kernels'
+   1,024-pixel limit; (d) the reductions, gather and sorts of
+   bench_scatter (the reductions agreeing, s1's order s2's on uncolliding
+   keys) and bench_binning's stages at the JAX tools' sizes; (e) the
+   port's bin_gaussians taken apart, plain and culled.
 Then a ``kernels`` JSON line with one object per kernel of the KERNELS
 table, the nvidia-smi line, and a final JSON line.
 
@@ -149,6 +165,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import subprocess
 import time
 
@@ -177,6 +194,7 @@ from gsplat_tpu_torch.ops.kernels.ssim import (ssim_bwd_cuda, ssim_fwd_cuda,
                                                ssim_partials_plain)
 from gsplat_tpu_torch.parallel import prim_shard, sharded, tile_shard
 from gsplat_tpu_torch.scene import ply as ply_lib
+from gsplat_tpu_torch.tools import bench
 from gsplat_tpu_torch.train import checkpoint as ckpt_lib
 from gsplat_tpu_torch.train import trainer
 
@@ -247,21 +265,12 @@ def median_ms(fn, reps):
     return float(np.median(times))
 
 
-def bench_points(rng):
-    """bench.py's synthetic cloud: 200k points in front of the camera (kept
-    off the near plane) and their colors."""
-    pts = rng.standard_normal((N_GAUSS, 3)).astype(np.float32) * 2.0
-    pts[:, 2] = np.abs(pts[:, 2]) + 4.0
-    colors = rng.uniform(0, 1, (N_GAUSS, 3)).astype(np.float32)
-    return pts, colors
-
-
 def make_ply(path, rng, device):
     """bench.py's synthetic scene: a 200k-point cloud in front of the
     camera, 3-NN init scales (the port's knn on the card) shrunk by e^-1,
     opacity 0.5; higher SH coefficients small and random so the degree-3
     colors vary."""
-    pts, colors = bench_points(rng)
+    pts, colors = bench.bench_points(rng, N_GAUSS)
     dist2 = knn.mean_sq_dist_to_3nn(torch.tensor(pts, device=device))
     dist2 = torch.clamp(dist2, min=1e-7).cpu().numpy()
     scale = np.log(np.sqrt(dist2))[:, None].repeat(3, axis=1) - 1.0
@@ -325,18 +334,10 @@ def print_profile(label, prof, wall_ms, n_top):
 
 def kernel_device_ms(fn, reps):
     """Mean device time per call of fn() over reps calls, summed over the
-    device kernels it launches, from torch.profiler: what CUDA events
-    around one call cannot resolve when the call's host time exceeds its
-    kernel's."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+    device kernels it launches, from torch.profiler
+    (``tools/bench.py:device_busy``): what CUDA events around one call
+    cannot resolve when the call's host time exceeds its kernel's."""
+    return bench.device_busy(fn, reps)[0]
 
 
 def bound(n_bytes, ops):
@@ -374,29 +375,17 @@ def bwd_work(n_rows, tile_count, n_contrib):
 
 
 def bench_train_setup(dev):
-    """bench.py's training workload: its scene from create_from_pcd (3-NN
-    scales minus 1, opacity logit 0, SH 3 active), its camera, its uniform
-    ground truth, and its pair capacities right-sized from a probe frame
-    (1.3x the pairs, 1.5x the alignment padding)."""
-    rng = np.random.default_rng(SEED)
-    pts, colors = bench_points(rng)
-    g = gm.create_from_pcd(pts, colors, 3, capacity=N_GAUSS, device=dev)
-    g = dataclasses.replace(g, scaling=g.scaling - 1.0,
-                            opacity=torch.zeros_like(g.opacity),
-                            active_sh_degree=3)
-    cam = CameraView.create(np.eye(3), np.zeros(3), fovx=1.2, fovy=0.9,
-                            device=dev)
-    gt = torch.tensor(rng.uniform(0, 1, (3, H, W)).astype(np.float32),
-                      device=dev)
-    cfg = RasterizerConfig(pairs_per_gaussian=10.0)
+    """bench.py's training workload (``tools/bench.py:bench_scene``: its
+    scene, camera and uniform ground truth) and its pair capacities
+    right-sized from a probe frame (``right_sized``: 1.3x the pairs, 1.5x
+    the alignment padding)."""
+    g, cam, gt = bench.bench_scene(N_GAUSS, W, H, dev)
+    cfg = RasterizerConfig(pairs_per_gaussian=bench.FIRST_PPG)
     with torch.no_grad():
         b = rasterize.build_entries(g, cam, W, H, cfg).binning
     check(int(b.overflow) == 0, f"probe overflow {int(b.overflow)}")
-    pairs, padded = int(b.num_pairs), int(b.num_padded)
-    cfg = dataclasses.replace(
-        cfg, pairs_per_gaussian=max(pairs * 1.3 / N_GAUSS, 2.0),
-        pad_cap=max(cfg.chunk, int((padded - pairs) * 1.5)))
-    return g, cam, gt, cfg
+    return g, cam, gt, bench.right_sized(cfg, int(b.num_pairs),
+                                         int(b.num_padded), N_GAUSS)
 
 
 def cotangents(rng, T, P, dev):
@@ -2084,8 +2073,9 @@ class LoopProbe:
 
 def write_loop_scene(root, rng, w, h, n_cams):
     """A COLMAP scene written with the port's writers: bench.py's cloud
-    (``bench_points``) as the points, n_cams PINHOLE cameras at w x h with
-    fovx 1.2 at the poses of ``poses()`` continued, random 8-bit images.
+    (``tools/bench.py:bench_points``) as the points, n_cams PINHOLE
+    cameras at w x h with fovx 1.2 at the poses of ``poses()`` continued,
+    random 8-bit images.
     Returns the scene's directory."""
     from PIL import Image
 
@@ -2106,7 +2096,7 @@ def write_loop_scene(root, rng, w, h, n_cams):
             np.array([0.1 * i, -0.05 * i, 0.0]), 1, name)
         Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)) \
             .save(os.path.join(images, name), compress_level=1)
-    pts, colors = bench_points(rng)
+    pts, colors = bench.bench_points(rng, N_GAUSS)
     colmap.write_model(cams, imgs, (
         np.arange(len(pts), dtype=np.int64), pts.astype(np.float64),
         (colors * 255).astype(np.uint8), np.zeros(len(pts))),
@@ -3499,9 +3489,8 @@ def phase5_scene(spec, dev):
     g = gm.GaussianParams(active_sh_degree=3,
                           **{k: v.to(dev) for k, v in g.items()})
     rng = np.random.default_rng(SEED)
-    bench_points(rng)                     # bench_train_setup's draws
-    gt = torch.tensor(rng.uniform(0, 1, (3, H, W)).astype(np.float32),
-                      device=dev)
+    bench.bench_points(rng, N_GAUSS)      # bench_scene's draws
+    gt = bench.ground_truth(rng, W, H, dev)
     cam = CameraView.create(np.eye(3), np.zeros(3), fovx=1.2, fovy=0.9,
                             device=dev)
     return g, cam, gt, RasterizerConfig(**spec["cfg"])
@@ -4389,6 +4378,317 @@ def synthetic_reference_phase(dev, root):
           flush=True)
 
 
+# --------------------------------------------------------------- phase 13
+# The measurement entry points (gsplat_tpu_torch/tools, bench_torch.py) on
+# the card: (a) bench.py's train-step pixels/s at 1080p, with row culling,
+# and on (c)'s trained model of phase 12; (b) the stage profiler; (c) the
+# tile sweep in turns, each shape's compositor pair held to its plain
+# versions, and 32x64 refused by the kernels; (d) the scatter / sort and
+# binning micro-benchmarks at the JAX tools' sizes; (e) the binning taken
+# apart.
+SWEEP_SHAPES = ((32, 32, 64), (16, 16, 64), (8, 32, 64), (16, 32, 64),
+                (16, 64, 64), (32, 32, 32), (32, 32, 256))
+SWEEP_ROUNDS = 3           # rounds of one 7-step window per shape, in turns
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
+STEP_KERNELS = ("composite_fwd", "composite_bwd", "ssim_fwd", "ssim_bwd")
+REDUCE_TOL = 1e-3          # the reductions, relative to the largest sum
+# calls timed per variant of bench_scatter (the tool's default is the JAX
+# tool's 20): torch.cumsum along the rows of (4.8M, 16) takes 1.7 s a call
+SCATTER_ITERS = 3
+# the sweep's backward check: an element outside the gradient gate of the
+# exact sums (float32 cancellation) stays within this many times the
+# float32 plain version's largest error on the same tiles (the scan's gate
+# is twice torch.cumsum's; at 1080p on an NVIDIA H100 80GB HBM3 the
+# kernel's largest error is 1.4-3.5x the float32 plain version's on the
+# six shapes the sweep checks)
+BWD_ROUNDING = 4.0
+
+
+def bench_line(text, metric):
+    """bench.py's last JSON line of ``text``, checked: its keys, its
+    metric's name and a positive value."""
+    line = json.loads(text.strip().splitlines()[-1])
+    check(set(line) == BENCH_KEYS, f"bench line keys {sorted(line)}")
+    check(line["metric"] == metric, f"bench metric {line['metric']}, "
+          f"expected {metric}")
+    check(line["value"] > 0, f"bench value {line['value']}")
+    return line
+
+
+def check_bench_launches(got, sizing_steps, what):
+    """The right-sizing's steps (2 unless the first overflowed) and the
+    3 x 7 timed ones: one launch of each of the step's kernels a step, none
+    of the others."""
+    for name in KERNELS:
+        want = sizing_steps + 21 if name in STEP_KERNELS else 0
+        check(got[name] == want, f"{name} launched {got[name]} times in "
+              f"{what}, expected {want}")
+
+
+def bench_phase(dev, soak_ply):
+    """13a: the bench at 1080p in this process (its launches counted by
+    the wrappers), with --row_cull through bench_torch.py as a process
+    (counted by its own ``launches`` line), and with --ply on phase 12
+    (c)'s model. Returns the 1080p run's launches, the profiler's three
+    steps included."""
+    import io
+
+    lines = {}
+    reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        r = bench.main(["--device", dev.type])
+    launches = read_launches()
+    print(buf.getvalue(), end="", flush=True)
+    lines["1080p"] = bench_line(buf.getvalue(), "pixels_per_s_fwd_bwd_1080p")
+    check(r["sizing_steps"] == 2, "the bench's first step overflowed")
+    check_bench_launches(r["launches"], 2, "the bench")
+    for name in STEP_KERNELS:       # and the profiler's three steps
+        check(launches[name] == 2 + 21 + 3, f"{name}: {launches[name]}")
+    del r
+
+    proc = subprocess.run(["python3", "bench_torch.py", "--row_cull",
+                           "--device", dev.type],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    print(proc.stdout, end="", flush=True)
+    check(proc.returncode == 0, f"bench_torch.py --row_cull exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    lines["row_cull"] = bench_line(proc.stdout, "pixels_per_s_fwd_bwd_1080p")
+    got = json.loads([ln for ln in proc.stdout.splitlines()
+                      if ln.startswith("launches ")][-1][len("launches "):])
+    steps = int(re.search(r"right-sized in (\d+) steps", proc.stdout)[1])
+    check_bench_launches(got, steps, "bench_torch.py --row_cull")
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        r = bench.main(["--ply", soak_ply, "--device", dev.type])
+    print(buf.getvalue(), end="", flush=True)
+    lines["trained"] = bench_line(buf.getvalue(),
+                                  "pixels_per_s_fwd_bwd_1080p_trained")
+    check_bench_launches(r["launches"], r["sizing_steps"],
+                         "the bench on the trained model")
+    del r
+    print("bench lines: " + json.dumps(lines), flush=True)
+    return launches
+
+
+def profile_stages_phase(dev):
+    """13b: every stage's host, event and busy ms at 1080p; the compositor
+    stages' launches exact (a warm-up and profile_stages.ITERS calls)."""
+    from gsplat_tpu_torch.tools import profile_stages
+
+    reset_launches()
+    out = profile_stages.run(dev)
+    launches = read_launches()
+    check(out["overflow"] == 0, f"profile_stages overflow {out['overflow']}")
+    calls = 1 + profile_stages.ITERS
+    fwd, both = (profile_stages.STAGES[i].format(compositor="stream")
+                 for i in (4, 5))
+    for stage, want in ((fwd, dict(composite_fwd=calls)),
+                        (both, dict(composite_fwd=calls,
+                                    composite_bwd=calls))):
+        for name in KERNELS:
+            got = out[stage]["launches"][name]
+            check(got == want.get(name, 0), f"{name} launched {got} times "
+                  f"in the stage {stage!r}, expected {want.get(name, 0)}")
+    print("profile stages: " + json.dumps(
+        {k: {f: v[f] for f in ("host_ms", "event_ms", "busy_ms", "n_ops")}
+         for k, v in out.items() if isinstance(v, dict)}), flush=True)
+    return launches
+
+
+def bwd_vs_exact(label, entries, tile_start, tc, ga, gt, geo, fwd_kw):
+    """composite_bwd on the tiles ``tc`` keeps against autograd through the
+    plain compositor in float64 (the exact sums) and in float32. A gradient
+    element sums its row's terms over the tile's pixels; where they cancel,
+    float32 cannot reach the gradient gate's atol, whatever the order of
+    summation: the gate holds each element to the exact sums at GRAD_TOL,
+    or to BWD_ROUNDING times the float32 plain version's largest error on
+    these tiles. Returns (max error against float64, the float32 plain's,
+    elements outside GRAD_TOL for the kernel and the float32 plain)."""
+    with torch.no_grad():
+        sub = composite_fwd_cuda(entries, tile_start, tc, **geo, **fwd_kw)
+        kern = composite_bwd_cuda(entries, tile_start, tc, sub.t_final,
+                                  sub.n_contrib, ga, gt, **geo)[:, :10]
+
+    def plain(dtype):
+        x = entries.detach().to(dtype).requires_grad_()
+        out = composite_tiles_plain(x, tile_start, tc, **geo, **fwd_kw)
+        ((out.accum * ga.to(dtype)).sum()
+         + (out.t_final * gt.to(dtype)).sum()).backward()
+        return x.grad[:, :10]
+
+    exact, p32 = plain(torch.float64), plain(torch.float32).double()
+    err, err32 = (kern.double() - exact).abs(), (p32 - exact).abs()
+    gate = GRAD_TOL["rtol"] * exact.abs() + GRAD_TOL["atol"]
+    out_k, out_32 = int((err > gate).sum()), int((err32 > gate).sum())
+    slack = BWD_ROUNDING * float(err32.max())
+    worst = float(err[err > gate].max()) if out_k else 0.0
+    check(worst <= slack, f"composite_bwd ({label}): {out_k} elements "
+          f"outside the gradient gate of the exact sums, the worst {worst} "
+          f"over {BWD_ROUNDING}x the float32 plain version's largest error "
+          f"{float(err32.max())}")
+    check(float(kern.abs().max()) > 0.0, f"{label}: zero gradient")
+    print(f"kernel vs plain: composite_bwd ({label}) on {N_CHECK_TILES} "
+          f"tiles ({int(tc.sum())} entries): max |kernel - exact| "
+          f"{float(err.max()):.3e}, float32 plain {float(err32.max()):.3e}; "
+          f"outside the gradient gate: kernel {out_k}, float32 plain "
+          f"{out_32}", flush=True)
+    return float(err.max()), float(err32.max()), out_k, out_32
+
+
+def sweep_kernels(s, g, cam, rng):
+    """One frame of the shape: its compositor pair's kernel ms on the whole
+    frame (CUDA events, median of 10), and for every shape but the default
+    the forward against the plain compositor on the whole frame
+    (``fwd_vs_plain``) and the backward against the exact sums on tiles
+    picked as phase 3 picks them (``bwd_vs_exact``)."""
+    cfg = s.cfg
+    with torch.no_grad():
+        e = rasterize.build_entries(g, cam, W, H, cfg)
+    b = e.binning
+    check(int(b.overflow) == 0, f"{s.label}: overflow {int(b.overflow)}")
+    geo = dict(n_tiles_x=e.n_tiles_x, n_tiles_y=e.n_tiles_y,
+               tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+               alpha_min=cfg.alpha_min, alpha_max=cfg.alpha_max)
+    fwd_kw = dict(chunk=cfg.chunk, t_eps=cfg.transmittance_eps)
+    args = (e.entries, b.tile_start, b.tile_count)
+    T, P = e.n_tiles_x * e.n_tiles_y, cfg.tile_h * cfg.tile_w
+    ga, gt = cotangents(rng, T, P, e.entries.device)
+    with torch.no_grad():
+        f = composite_fwd_cuda(*args, **geo, **fwd_kw)
+        fwd_ms = median_ms(lambda: composite_fwd_cuda(*args, **geo,
+                                                      **fwd_kw), 10)
+        bargs = args + (f.t_final, f.n_contrib, ga, gt)
+        bwd_ms = median_ms(lambda: composite_bwd_cuda(*bargs, **geo), 10)
+    out = dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms)
+    if (cfg.tile_h, cfg.tile_w, cfg.chunk) != (32, 32, 64):
+        _, err, mismatch, _ = fwd_vs_plain(s.label, args, dict(geo,
+                                                               **fwd_kw))
+        berr, berr32, out_k, out_32 = bwd_vs_exact(
+            s.label, e.entries, b.tile_start, pick_tiles(b.tile_count, rng),
+            ga, gt, geo, fwd_kw)
+        out.update(fwd_err=err, n_contrib_mismatch=mismatch, bwd_err=berr,
+                   bwd_err_plain32=berr32, bwd_outside=out_k,
+                   bwd_outside_plain32=out_32)
+    return out
+
+
+def sweep_phase(g, cam, gt):
+    """13c: each shape right-sized as sweep_tiles does, its compositor pair
+    checked and timed, then the step timed in turns (SWEEP_ROUNDS rounds of
+    one 7-step window each, the best kept) and one step profiled; 32x64
+    must raise the kernels' pixel error. Returns the timed turns'
+    launches."""
+    from gsplat_tpu_torch.tools import sweep_tiles
+
+    dev = gt.device
+    rng = np.random.default_rng(SEED + 13)
+    shapes = [sweep_tiles.setup(th, tw, c, "stream", g, cam, gt,
+                                bench.FIRST_PPG)
+              for th, tw, c in SWEEP_SHAPES]
+    kern = [sweep_kernels(s, g, cam, rng) for s in shapes]
+    states = [s.state for s in shapes]
+    best = [float("inf")] * len(shapes)
+    reset_launches()
+    for _ in range(SWEEP_ROUNDS):
+        for i, s in enumerate(shapes):
+            ms, states[i], ovf = bench.time_windows(s.step, states[i], dev,
+                                                    7, 1)
+            check(ovf == 0, f"{s.label}: overflow {ovf} while timed")
+            best[i] = min(best[i], ms[0] / 7)
+    launches = read_launches()
+    want = SWEEP_ROUNDS * 7 * len(shapes)
+    for name in KERNELS:
+        check(launches[name] == (want if name in STEP_KERNELS else 0),
+              f"{name} launched {launches[name]} times in the sweep")
+    rows = []
+    for s, k, step_ms, st in zip(shapes, kern, best, states):
+        busy, n_ops = bench.device_busy(lambda: s.step(st))
+        rows.append(dict(shape=s.label, pairs=s.pairs, m_cap=s.m_cap,
+                         m_out=s.m_out, tiles=s.tiles, step_ms=step_ms,
+                         busy_ms=busy, n_ops=n_ops, **k))
+        print(f"sweep {s.label}: pairs={s.pairs} m_cap={s.m_cap} "
+              f"m_out={s.m_out} tiles={s.tiles}; step {step_ms:.3f} ms "
+              f"(best of {SWEEP_ROUNDS} windows in turns), device busy "
+              f"{busy:.3f} ms in {n_ops:.1f} ops; compositor fwd "
+              f"{k['fwd_ms']:.3f} + bwd {k['bwd_ms']:.3f} ms"
+              + (f"; kernels vs plain: fwd {k['fwd_err']:.3e}, bwd vs exact "
+                 f"{k['bwd_err']:.3e} (float32 plain "
+                 f"{k['bwd_err_plain32']:.3e})" if "fwd_err" in k else ""),
+              flush=True)
+    del shapes, states
+    # the sweep's entry point once, and the tile the kernels refuse
+    sweep_tiles.main(["32", "32", "64", "--device", dev.type])
+    try:
+        sweep_tiles.main(["32", "64", "64", "--device", dev.type])
+    except ValueError as e:
+        check("2048 pixels exceeds composite_fwd's 1024" in str(e),
+              f"32x64: {e}")
+        print(f"sweep 32x64/64: refused by the kernels: {e}", flush=True)
+    else:
+        check(False, "32x64 tiles ran: the kernels take 1,024 pixels")
+    print("sweep: " + json.dumps(rows), flush=True)
+    return launches
+
+
+def micro_phase(dev):
+    """13d and 13e: bench_scatter and bench_binning at the JAX tools' card
+    sizes, the reductions within REDUCE_TOL of the largest sum of each
+    other and s1's order s2's wherever s1's key is its own; then the
+    binning taken apart at 1080p (the tool raises unless its stages
+    compose to bin_gaussians)."""
+    from gsplat_tpu_torch.tools import (bench_binning, bench_scatter,
+                                        bisect_binning)
+
+    sc = bench_scatter.run(dev, iters=SCATTER_ITERS)
+    for k, v in sc["max_diff"].items():
+        check(v <= REDUCE_TOL * sc["scale"], f"reduction {k} differs from "
+              f"a) by {v} (largest sum {sc['scale']})")
+    u = sc["unique"]
+    check(torch.equal(sc["order1"][u], sc["order2"][u]),
+          "s1 and s2 order some uncolliding keys differently")
+    print(f"scatter: reductions agree (max |x - a)| "
+          f"{max(sc['max_diff'].values()):.3e} of largest sum "
+          f"{sc['scale']:.3f}); s1 = s2 on the {float(u.float().mean()):.4%}"
+          f" of rows whose key is their own; segment_reduce "
+          f"{sc['segment_reduce'] or 'ran'}", flush=True)
+    del sc
+    bb = bench_binning.run(dev)
+    n, m_cap = bench_binning.SIZES[dev.type]
+    counts = bench_binning.inputs(n, m_cap, bench_binning.N_TILES,
+                                  "cpu")["counts"]
+    check(torch.equal(bb["repeat_interleave"]["result"].cpu(),
+                      bench_binning.repeat(counts, m_cap)),
+          "repeat_interleave on the card differs from the CPU's")
+    del bb
+    bisect_binning.run(dev)
+
+
+def measure_phase(dev, g, cam, gt, soak_ply):
+    """Phase 13. Returns the launches of the bench, the stage profiler and
+    the sweep's timed turns."""
+    t = [time.perf_counter()]
+
+    def lap():
+        t.append(time.perf_counter())
+        torch.cuda.empty_cache()
+        return round(t[-1] - t[-2], 1)
+
+    launches = dict(bench=bench_phase(dev, soak_ply))
+    secs = dict(bench=lap())
+    launches["profile_stages"] = profile_stages_phase(dev)
+    secs["profile_stages"] = lap()
+    launches["sweep"] = sweep_phase(g, cam, gt)
+    secs["sweep"] = lap()
+    micro_phase(dev)
+    secs["micro"] = lap()
+    print(f"phase 13 (measurement entry points): {t[-1] - t[0]:.1f} s "
+          f"({secs})", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing run")
@@ -4584,6 +4884,12 @@ def main():
     synth_launches = synthetic_phase(dev, root)
     synthetic_reference_phase(dev, root)
 
+    # ---- phase 13: the measurement entry points
+    torch.cuda.empty_cache()
+    measure_launches = measure_phase(dev, tg, tcam, tgt, os.path.join(
+        root, "soak", "model", "point_cloud",
+        f"iteration_{SYNTH_SOAK_ITERS}", "point_cloud.ply"))
+
     kernels = []
     for name, k in KERNELS.items():
         by_path = {"render": render_launches[name],
@@ -4603,7 +4909,8 @@ def main():
                    "row_cull": cull_launches[name],
                    "split_cull": split_cull_launches[name],
                    "bridge_ranks": bridge_rank_launches[name],
-                   "synthetic": synth_launches[name]}
+                   "synthetic": synth_launches[name],
+                   **{path: n[name] for path, n in measure_launches.items()}}
         check(any(by_path.values()), f"{name} was launched on no path")
         n = numbers[name]
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"):

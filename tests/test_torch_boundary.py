@@ -1,14 +1,13 @@
 """The port's import boundary and device contract.
 
 gsplat_tpu_torch (the native loader, the depth-scale CLI and the
-validation tools of ``gsplat_tpu_torch/tools`` among its modules),
-chip_smoke.py, the A/B scripts (compositor_ab.py, ssim_ab.py,
-row_cull_ab.py),
-rank0_writes.py and the port's root CLIs (``*_torch.py``) import neither
-JAX, nor anything of the gsplat_tpu package, nor the repo's top-level
-``tools`` package, and
-the port's entry points run on CUDA unless the caller asks for the CPU:
-without CUDA they raise instead of carrying on.
+validation and measurement tools of ``gsplat_tpu_torch/tools`` among its
+modules), chip_smoke.py, the A/B scripts (compositor_ab.py, ssim_ab.py,
+row_cull_ab.py), rank0_writes.py and the port's root CLIs
+(``*_torch.py``, bench_torch.py among them) import neither JAX, nor
+anything of the gsplat_tpu package, nor the repo's top-level ``tools``
+package, and the port's entry points run on CUDA unless the caller asks
+for the CPU: without CUDA they raise instead of carrying on.
 """
 import json
 import os
@@ -30,7 +29,7 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke, compositor_ab, ssim_ab, rank0_writes, row_cull_ab
 import metrics_torch, full_eval_torch, convert_torch, view_torch
-import make_depth_scale_torch
+import make_depth_scale_torch, bench_torch
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "gsplat_tpu", "tools"))
 print(json.dumps({"modules": names, "bad": bad}))
@@ -74,7 +73,13 @@ def test_port_imports_no_jax_and_no_gsplat_tpu():
                 "gsplat_tpu_torch.tools.drive_render",
                 "gsplat_tpu_torch.tools.soak_30k",
                 "gsplat_tpu_torch.tools.debug_nan",
-                "gsplat_tpu_torch.tools.analyze_nan"):
+                "gsplat_tpu_torch.tools.analyze_nan",
+                "gsplat_tpu_torch.tools.bench",
+                "gsplat_tpu_torch.tools.profile_stages",
+                "gsplat_tpu_torch.tools.sweep_tiles",
+                "gsplat_tpu_torch.tools.bench_scatter",
+                "gsplat_tpu_torch.tools.bench_binning",
+                "gsplat_tpu_torch.tools.bisect_binning"):
         assert mod in res["modules"]
 
 
@@ -172,9 +177,11 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     network_gui.NetworkGUI("127.0.0.1", 0, device="cpu").close()
 
     # the validation tools: each raises before it writes anything
-    from gsplat_tpu_torch.tools import (analyze_nan, debug_nan, drive_render,
-                                        drive_train, make_synthetic_scene,
-                                        soak_30k)
+    from gsplat_tpu_torch.tools import (analyze_nan, bench, bench_binning,
+                                        bench_scatter, bisect_binning,
+                                        debug_nan, drive_render, drive_train,
+                                        make_synthetic_scene, profile_stages,
+                                        soak_30k, sweep_tiles)
     out = tmp_path / "tools_out"
     tool_argv = [
         (make_synthetic_scene.main, ["--out", str(out)]),
@@ -183,6 +190,14 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         (soak_30k.main, ["10", str(out)]),
         (debug_nan.main, ["--repro", str(out / "r.npz")]),
         (analyze_nan.main, ["--repro", str(out / "r.npz")]),
+        # the measurement tools (bench_torch.py is bench.main)
+        (bench.main, []),
+        (bench.main, ["--ply", str(out / "point_cloud.ply")]),
+        (profile_stages.main, []),
+        (sweep_tiles.main, ["32", "32", "64"]),
+        (bench_scatter.main, []),
+        (bench_binning.main, []),
+        (bisect_binning.main, []),
     ]
     for main, argv in tool_argv:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
