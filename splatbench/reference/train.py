@@ -1,0 +1,145 @@
+"""The plain reference of a training step of 3D Gaussian Splatting: render
+(``raster.render``), the loss (1 - 0.2)·L1 + 0.2·(1 - SSIM) of the 3DGS
+code (11-tap Gaussian window, sigma 1.5, zero padding, C1 = 0.01²,
+C2 = 0.03², variances clamped at 0), and Adam as the 3DGS code steps it:
+per-group rates, the position rate on its exponential schedule scaled by
+the scene extent, b1 0.9, b2 0.999, eps 1e-15, bias corrections in float32.
+
+A batch of views sums each view's loss and gradients through ``reduce``
+(the identity on one process; an all-reduce over ranks for camera data
+parallelism) and divides by the batch. Nothing here imports the system
+under test.
+"""
+from __future__ import annotations
+
+from typing import Callable, List, Sequence
+
+import numpy as np
+import torch
+
+from splatbench.reference import raster
+
+LAMBDA_DSSIM = 0.2
+B1, B2, EPS = 0.9, 0.999, 1e-15
+LEAVES = ("xyz", "f_dc", "f_rest", "scaling", "rotation", "opacity")
+
+
+def lr_groups(step: int, extent: float, opt: dict) -> dict:
+    """Each group's rate at ``step`` (1-based): the position rate
+    log-linear from init to final over ``position_lr_max_steps``, scaled by
+    the extent; the rest constant, f_rest at feature_lr / 20."""
+    t = min(max(step / opt["position_lr_max_steps"], 0.0), 1.0)
+    lo, hi = (opt["position_lr_init"] * extent,
+              opt["position_lr_final"] * extent)
+    return {"xyz": float(np.exp(np.log(lo) * (1 - t) + np.log(hi) * t)),
+            "f_dc": opt["feature_lr"], "f_rest": opt["feature_lr"] / 20.0,
+            "opacity": opt["opacity_lr"], "scaling": opt["scaling_lr"],
+            "rotation": opt["rotation_lr"]}
+
+
+def ssim(img, gt, prod: raster.Products):
+    """Mean SSIM of two (3, H, W) images."""
+    xs = np.arange(11, dtype=np.float64)
+    g = np.exp(-((xs - 5) ** 2) / (2 * 1.5 ** 2))
+    g = torch.tensor(g / g.sum(), dtype=torch.float32, device=img.device)
+    w = (g[:, None] * g[None, :]).expand(3, 1, 11, 11).contiguous()
+
+    def blur(x):
+        return prod.conv(x[None], w, padding=5, groups=3)[0]
+
+    mu1, mu2 = blur(img), blur(gt)
+    s1 = torch.clamp(blur(img * img) - mu1 * mu1, min=0.0)
+    s2 = torch.clamp(blur(gt * gt) - mu2 * mu2, min=0.0)
+    s12 = blur(img * gt) - mu1 * mu2
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    return (((2 * mu1 * mu2 + c1) * (2 * s12 + c2))
+            / ((mu1 * mu1 + mu2 * mu2 + c1) * (s1 + s2 + c2))).mean()
+
+
+def loss_fn(gt, prod):
+    """``d_image_fn`` for ``raster.render``: (loss, its gradient at the
+    image)."""
+    def fn(image):
+        image = image.detach().requires_grad_()
+        with torch.enable_grad():
+            l1 = (image - gt).abs().mean()
+            loss = (1 - LAMBDA_DSSIM) * l1 + LAMBDA_DSSIM * (
+                1 - ssim(image, gt, prod))
+            (d,) = torch.autograd.grad(loss, image)
+        return loss.detach(), d
+    return fn
+
+
+def adam(params: dict, grads: dict, mu: dict, nu: dict, count: int,
+         lrs: dict):
+    """One Adam step; returns (params, mu, nu)."""
+    f32 = np.float32
+    b1c = float(f32(1.0) - f32(B1) ** f32(count))
+    b2c = float(f32(1.0) - f32(B2) ** f32(count))
+    out_p, out_m, out_v = {}, {}, {}
+    for k in params:
+        g = grads[k]
+        m = mu[k] * B1 + g * (1 - B1)
+        v = nu[k] * B2 + (g * g) * (1 - B2)
+        out_p[k] = params[k] - float(f32(lrs[k])) * (m / b1c) / (
+            torch.sqrt(v / b2c) + EPS)
+        out_m[k], out_v[k] = m, v
+    return out_p, out_m, out_v
+
+
+def identity(ts: List[torch.Tensor]) -> List[torch.Tensor]:
+    return ts
+
+
+class Steps:
+    """What ``train_steps`` read: each step's loss, the first step's
+    gradient norm by leaf, the norm of each leaf's change after all
+    steps, and the frames' counts (pairs, contributions)."""
+
+    def __init__(self):
+        self.loss: List[float] = []
+        self.grad_norm: dict = {}
+        self.change_norm: dict = {}
+        self.frames: list = []
+
+
+@raster.full_f32()
+def train_steps(p0: dict, batches: Sequence[Sequence[tuple]], *, W: int,
+                H: int, bg, sh_degree: int, extent: float, opt: dict,
+                first_step: int, prod: raster.Products,
+                reduce: Callable = identity, batch: int = 1) -> Steps:
+    """Train ``len(batches)`` steps from the parameters ``p0`` (left
+    unchanged). ``batches[s]`` holds this process's (view, ground truth)
+    of step s; with ``reduce`` summing over ranks, ``batch`` is the whole
+    batch. Step s is number ``first_step + s + 1``."""
+    out = Steps()
+    params = {k: p0[k].detach().clone() for k in LEAVES}
+    mu = {k: torch.zeros_like(v) for k, v in params.items()}
+    nu = {k: torch.zeros_like(v) for k, v in params.items()}
+    for s, views in enumerate(batches):
+        leaf = {k: v.requires_grad_() for k, v in params.items()}
+        loss = torch.zeros((), device=bg.device)
+        grads = {k: torch.zeros_like(v) for k, v in params.items()}
+        for view, gt in views:
+            frame, value, g = raster.render(
+                leaf, view, W, H, bg, sh_degree, prod, with_grad=True,
+                d_image_fn=loss_fn(gt, prod))
+            out.frames.append(frame._replace(image=None, invdepth=None,
+                                             radius=None, t_final=None))
+            loss = loss + value
+            for k in grads:
+                grads[k] += g[k]
+        keys = list(grads)
+        summed = reduce([loss[None]] + [grads[k] for k in keys])
+        loss = summed[0][0] / batch
+        grads = {k: v / batch for k, v in zip(keys, summed[1:])}
+        out.loss.append(float(loss))
+        if s == 0:
+            out.grad_norm = {k: float(torch.linalg.norm(v))
+                             for k, v in grads.items()}
+        params = {k: v.detach() for k, v in params.items()}
+        params, mu, nu = adam(params, grads, mu, nu, s + 1,
+                              lr_groups(first_step + s + 1, extent, opt))
+    out.change_norm = {k: float(torch.linalg.norm(params[k] - p0[k]))
+                       for k in LEAVES}
+    return out
