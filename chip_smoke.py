@@ -25,8 +25,9 @@ Phases, each printing its own line:
    tile of the training frame, the SSIM map (the same bits with and without
    the partial maps its launch writes for the backward), the partial maps
    and the one-launch backward at 3x1920x1080 against the plain SSIM,
-   with the pair's time and bound per step; each kernel timed by CUDA
-   events;
+   with the pair's time and bound per step; the fused preprocess pair on
+   the training scene against the plain path (preprocess_ab.py's gates and
+   timings); each kernel timed by CUDA events;
 3c. the depth-slab and tile-band forms of the kernels against their plain
    versions, on the phase-5 frame's entries split into 4 depth slabs, with
    the rectangle walk of every tile of each slab: the slab transmittance
@@ -188,6 +189,8 @@ from gsplat_tpu_torch.ops.kernels.composite import (composite_bwd_cuda,
                                                     composite_fwd_cuda,
                                                     cull_rects_cuda,
                                                     slab_transmittance_cuda)
+from gsplat_tpu_torch.ops.kernels.preprocess import (preprocess_bwd_cuda,
+                                                     preprocess_fwd_cuda)
 from gsplat_tpu_torch.ops.kernels.scan import (blocked_cumsum_16_cuda,
                                                blocked_cumsum_16_plain)
 from gsplat_tpu_torch.ops.kernels.ssim import (ssim_bwd_cuda, ssim_fwd_cuda,
@@ -659,6 +662,41 @@ def check_composite_bwd(g, cam, cfg, rng):
     return dict(max_abs_err=err, ms=kern_ms, plain_ms=plain_ms, **bnd)
 
 
+def check_preprocess(g, cam, rng):
+    """Phase 3b: the fused preprocess pair (csrc/preprocess_fwd.cu,
+    preprocess_bwd.cu) against the plain path on the training step's scene,
+    at preprocess_ab.py's gates (``hold``: the packed rows, the integer
+    columns, every raw field's gradient and the tap's under a N(0,1)
+    cotangent of the packed rows) and timed as it times them
+    (``measure``). Returns the two kernels' numbers; ``max_abs_err`` is
+    the largest gap over its column's largest entry."""
+    import preprocess_ab
+    ct = torch.tensor(rng.standard_normal((g.capacity + 1, 16)).astype(
+        np.float32), device=g.device)
+    agree = preprocess_ab.hold(g, cam, W, H, ct)
+    m = preprocess_ab.measure(g, cam, W, H, ct)
+    med = {k: float(np.median(v)) for k, v in m["ms"].items()}
+    gaps = agree["gaps"]
+    bwd_err = max(v[0] for k, v in gaps.items() if k.startswith("d_"))
+    print(f"kernel vs plain: preprocess pair at {g.capacity} gaussians, "
+          f"{W}x{H}: gaps over the column's largest (and entries past the "
+          f"gate) {gaps}, radius/rx/ry differing {agree['ceil_edge']}; "
+          f"forward {med['fused_fwd']:.4f} ms (bound "
+          f"{m['bound_ms']['fused_fwd']:.4f}, bytes), plain "
+          f"{med['plain_fwd']:.3f}; backward {med['fused_bwd']:.4f} ms "
+          f"(bound {m['bound_ms']['fused_bwd']:.4f}, bytes); forward plus "
+          f"backward {med['fused_fwd_bwd']:.4f} ms against the plain path's "
+          f"{med['plain_fwd_bwd']:.3f}; device ops {m['device_ops']}",
+          flush=True)
+    return (dict(max_abs_err=gaps["packed"][0], ms=med["fused_fwd"],
+                 plain_ms=med["plain_fwd"],
+                 bound_ms=m["bound_ms"]["fused_fwd"], bound_by="bytes",
+                 ceil_edge=agree["ceil_edge"]),
+            dict(max_abs_err=bwd_err, ms=med["fused_bwd"],
+                 plain_ms=med["plain_fwd_bwd"] - med["plain_fwd"],
+                 bound_ms=m["bound_ms"]["fused_bwd"], bound_by="bytes"))
+
+
 def check_ssim(dev, rng):
     """The SSIM map, its partial maps and its backward against the plain
     SSIM on the card at 3x1080x1920, under the mean's uniform cotangent and
@@ -1030,9 +1068,19 @@ KERNELS = {
     "ssim_bwd": dict(wrapper=ssim_bwd_cuda, per_step=1, per_slab_render=0,
                      per_band_render=0, per_sharded_step=1, per_eval_view=0,
                      per_view_frame=0, replaces=["ssim_kernel.py:98"]),
+    # the port's own pair (no TPU kernel): once per single render and its
+    # backward; the split and sharded paths preprocess on the plain path
+    "preprocess_fwd": dict(wrapper=preprocess_fwd_cuda, per_step=1,
+                           per_slab_render=0, per_band_render=0,
+                           per_sharded_step=0, per_eval_view=1,
+                           per_view_frame=1, replaces=[]),
+    "preprocess_bwd": dict(wrapper=preprocess_bwd_cuda, per_step=1,
+                           per_slab_render=0, per_band_render=0,
+                           per_sharded_step=0, per_eval_view=0,
+                           per_view_frame=0, replaces=[]),
 }
 # the kernels only a backward launches
-BACKWARD_ONLY = ("composite_bwd", "scan")
+BACKWARD_ONLY = ("composite_bwd", "scan", "preprocess_bwd")
 # the kernels only a loss launches
 LOSS_ONLY = ("ssim_fwd", "ssim_bwd")
 
@@ -1384,6 +1432,21 @@ def check_scan(dev, rng, m_rows):
                 library_device_ms=lib_dev_ms, **bnd)
 
 
+@contextlib.contextmanager
+def plain_preprocess():
+    """Inside the block the single render preprocesses on the plain path
+    (``preprocess_packed_plain``), as the gaussian-sharded paths still do:
+    their oracle, like for like, at their gates of a few ulps. The fused
+    pair against the plain path is phase 3b's."""
+    from gsplat_tpu_torch.ops import preprocess as pre_lib
+    fused = pre_lib.preprocess_packed
+    pre_lib.preprocess_packed = pre_lib.preprocess_packed_plain
+    try:
+        yield
+    finally:
+        pre_lib.preprocess_packed = fused
+
+
 def single_loss_grads(g, exposure, cam, gt, bg, cfg, opt):
     """The sharded step's loss, (1 - l)·L1 + l·(1 - SSIM) with the plain
     SSIM, through the single render: (loss, gradients by field, tap
@@ -1420,10 +1483,11 @@ def sharded_phase(state, cams, cam, gt, cfg, scfg, m_loc, pairs):
           f"owner o in band k, k by o: {pairs}; per-shard capacity {m_loc} "
           f"(pairs_per_gaussian {scfg.pairs_per_gaussian:.3f})", flush=True)
 
-    with torch.no_grad():
+    with torch.no_grad(), plain_preprocess():
         singles = [rasterize.render(g, c, W, H, bg, cfg) for c in cams]
-    loss1, want, want_tap, radii1 = single_loss_grads(
-        g, state.exposure, cam, gt, bg, cfg, opt)
+    with plain_preprocess():
+        loss1, want, want_tap, radii1 = single_loss_grads(
+            g, state.exposure, cam, gt, bg, cfg, opt)
     vis = radii1 > 0
     total = {name: 0 for name in KERNELS}
     replicated = None
@@ -1797,6 +1861,7 @@ def row_cull_phase(g, cam, gt, cfg, rng):
     n = 2 * CULL_ROUNDS
     want = {name: k["per_step"] * n for name, k in KERNELS.items()}
     want["composite_fwd"] += n                  # the frames
+    want["preprocess_fwd"] += n
     check(culled_total == want, f"{n} culled frames and {n} culled "
           f"steps launched {culled_total}, expected {want}")
     print(f"row_cull {W}x{H}, {N_GAUSS} gaussians, SH 3 (phase 5's scene): "
@@ -1831,8 +1896,9 @@ def row_cull_split_phase(state, cam, gt, cfg, scfg, m_cap):
     ones = torch.ones((1, H, W), device=dev)
     zeros = torch.zeros((1, H, W), device=dev)
     kw = dict(image_width=W, image_height=H)
-    with torch.no_grad():
+    with torch.no_grad(), plain_preprocess():
         single = rasterize.render(g, cam, W, H, bg, ccfg)
+    with torch.no_grad():
         slabs = prim_shard.build_slab_entries(g, cam, W, H, ccfg,
                                               n_slabs=N_SLABS, m_cap=m_cap)
         e = slabs[0]
@@ -2134,17 +2200,19 @@ def run_loop(src, model, dev, opt_kw, *, tests=(), saves=(), ckpts=(),
 
 
 def expected_loop_launches(steps, renders, sharded_shards=0):
-    """What a loop run launches: per step the compositor pair and the SSIM
-    pair (single), or the compositor pair and the scan once per shard and
-    the SSIM pair once (sharded); one compositor forward per eval render
-    or bridge frame."""
+    """What a loop run launches: per step the compositor pair, the SSIM
+    pair and the preprocess pair (single), or the compositor pair and the
+    scan once per shard and the SSIM pair once (sharded, whose preprocess
+    is plain); one compositor forward per eval render or bridge frame, and
+    one preprocess forward with it where single."""
     if sharded_shards:
         d = sharded_shards * steps
         want = dict(composite_fwd=d + renders, composite_bwd=d, scan=d,
                     ssim_fwd=steps, ssim_bwd=steps)
     else:
         want = dict(composite_fwd=steps + renders, composite_bwd=steps,
-                    ssim_fwd=steps, ssim_bwd=steps)
+                    ssim_fwd=steps, ssim_bwd=steps,
+                    preprocess_fwd=steps + renders, preprocess_bwd=steps)
     return {name: want.get(name, 0) for name in KERNELS}
 
 
@@ -2786,7 +2854,10 @@ def bridge_phase(dev, root, src, state, ckpt):
         check(not errors and len(frames) == 2,
               f"bridge: {len(frames)} frames, errors {errors}")
         view_launches = read_launches()
+        # the python paths' frame brings its colours and covariances: the
+        # plain preprocess
         want = {n: 2 if n == "composite_fwd" else 0 for n in KERNELS}
+        want["preprocess_fwd"] = 1
         check(view_launches == want,
               f"bridge launches {view_launches}, expected {want}")
         diff = int(np.abs(frames[0].astype(int)
@@ -3439,8 +3510,9 @@ def shard_ranks_prep(tg, tcam, tgt, tcfg, cams, root):
     bg = torch.zeros(3, device=dev)
     opt = OptimizationConfig()
     state = trainer.init_state(tg, 1)
-    loss1, want, want_tap, radii1 = single_loss_grads(
-        tg, state.exposure, tcam, tgt, bg, tcfg, opt)
+    with plain_preprocess():
+        loss1, want, want_tap, radii1 = single_loss_grads(
+            tg, state.exposure, tcam, tgt, bg, tcfg, opt)
     want_path = os.path.join(root, "shard_want.pt")
     torch.save(dict(loss=loss1, radii=radii1.cpu(), tap=want_tap.cpu(),
                     **{k: v.cpu() for k, v in want.items()}), want_path)
@@ -3516,8 +3588,9 @@ def sr_split(spec, rank, dev):
         return tile_shard.render_tile_sharded(p, c, W, H, bg, tcfg,
                                               n_bands=parts)
     out = {}
-    with torch.no_grad():
+    with torch.no_grad(), plain_preprocess():
         singles = [rasterize.render(tg, c, W, H, bg, tcfg) for c in cams]
+    with torch.no_grad():
         local = [(slab(tg, c, SR_RANKS)[0], band(tg, c, SR_RANKS)[0])
                  for c in cams]
         slab(tg, cams[0])                                   # warm-ups
@@ -4289,7 +4362,9 @@ def synthetic_phase(dev, root):
         want = {"composite_fwd": SYNTH_DRIVE_ITERS + SYNTH_DRIVE_RENDERS,
                 "composite_bwd": SYNTH_DRIVE_ITERS,
                 "ssim_fwd": SYNTH_DRIVE_ITERS,
-                "ssim_bwd": SYNTH_DRIVE_ITERS}.get(name, 0)
+                "ssim_bwd": SYNTH_DRIVE_ITERS,
+                "preprocess_fwd": SYNTH_DRIVE_ITERS + SYNTH_DRIVE_RENDERS,
+                "preprocess_bwd": SYNTH_DRIVE_ITERS}.get(name, 0)
         check(launches[name] == want, f"{name} launched {launches[name]} "
               f"times in the drive, expected {want}")
     check(r["overflow"] == 0, f"drive overflow {r['overflow']}")
@@ -4390,7 +4465,8 @@ SWEEP_SHAPES = ((32, 32, 64), (16, 16, 64), (8, 32, 64), (16, 32, 64),
                 (16, 64, 64), (32, 32, 32), (32, 32, 256))
 SWEEP_ROUNDS = 3           # rounds of one 7-step window per shape, in turns
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
-STEP_KERNELS = ("composite_fwd", "composite_bwd", "ssim_fwd", "ssim_bwd")
+STEP_KERNELS = ("composite_fwd", "composite_bwd", "ssim_fwd", "ssim_bwd",
+                "preprocess_fwd", "preprocess_bwd")
 REDUCE_TOL = 1e-3          # the reductions, relative to the largest sum
 # calls timed per variant of bench_scatter (the tool's default is the JAX
 # tool's 20): torch.cumsum along the rows of (4.8M, 16) takes 1.7 s a call
@@ -4775,6 +4851,8 @@ def main():
     check_rng = np.random.default_rng(SEED + 1)
     numbers["composite_bwd"] = check_composite_bwd(tg, tcam, tcfg, check_rng)
     numbers["ssim_fwd"], numbers["ssim_bwd"] = check_ssim(dev, check_rng)
+    numbers["preprocess_fwd"], numbers["preprocess_bwd"] = check_preprocess(
+        tg, tcam, check_rng)
 
     # ---- phase 3c: the kernels as the slab and band paths call them
     slab_numbers, m_cap, pairs = check_slab_kernels(tg, tcam, tcfg, check_rng)
@@ -4918,7 +4996,8 @@ def main():
         kernels.append(dict(
             name=name, route="cuda",
             source=f"gsplat_tpu_torch/ops/kernels/csrc/{name}.cu",
-            replaces=" + ".join(PALLAS + r for r in k["replaces"]),
+            replaces=" + ".join(PALLAS + r for r in k["replaces"])
+            or "none: the port's own",
             launches=(by_path["loop"] or by_path["loop_sharded"]
                       or by_path["slab"]),
             launches_by_path=by_path, **{"library_ms": None, **n}))

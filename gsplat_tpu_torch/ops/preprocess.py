@@ -7,6 +7,14 @@ antialiasing opacity correction → SH→RGB clamped at 0 → 3σ radius and the
 tight per-axis binning extents. The tiny per-gaussian matrix products are
 written as component arithmetic on (N,) columns, as in the JAX package, so
 they stay exact f32 on every device and fuse into elementwise passes.
+
+``preprocess_packed`` is what the render path calls: from the raw
+trainable fields to the packed entry rows the compositor's gather reads.
+On the card (no precomputed covariances or colours, SH degree at most 3)
+it is one fused CUDA kernel each way (ops/kernels/preprocess.py); on the
+CPU, or with precomputed inputs, it is ``preprocess_packed_plain``: the
+activations, ``preprocess`` and ``pack_entries`` under autograd, the
+version the kernels are held to.
 """
 from __future__ import annotations
 
@@ -17,6 +25,8 @@ import torch
 from gsplat_tpu_torch.core import sh as sh_lib
 from gsplat_tpu_torch.core import transforms
 from gsplat_tpu_torch.core.camera import CameraView
+from gsplat_tpu_torch.models.gaussian_model import GaussianParams
+from gsplat_tpu_torch.ops.kernels import preprocess as kpre
 
 
 class Preprocessed(NamedTuple):
@@ -184,3 +194,94 @@ def preprocess(xyz: torch.Tensor,            # (N,3)
                         opacity=opacity_eff, radius=radius, invdepth=invdepth,
                         rx=rx, ry=ry,
                         t_cut=torch.where(tight_visible, t_cut, zero))
+
+
+def pack_rows(pre: Preprocessed) -> torch.Tensor:
+    """(N, 16) per-gaussian packed rows. Columns: 0 mx, 1 my, 2 conic_a,
+    3 conic_b, 4 conic_c, 5 opacity, 6..8 rgb, 9 invdepth, 10..15 zero."""
+    n = pre.mean2d.shape[0]
+    return torch.cat([
+        pre.mean2d, pre.conic, pre.opacity[:, None], pre.color,
+        pre.invdepth[:, None],
+        torch.zeros((n, 6), dtype=pre.mean2d.dtype, device=pre.mean2d.device),
+    ], dim=-1)
+
+
+def pack_entries(pre: Preprocessed) -> torch.Tensor:
+    """(N+1, 16) packed rows; row N is the zero row that sentinel entries
+    address."""
+    cols = pack_rows(pre)
+    return torch.cat([cols, cols.new_zeros((1, 16))], dim=0)
+
+
+def preprocess_packed_plain(gaussians: GaussianParams, cam: CameraView,
+                            image_width: int, image_height: int, *,
+                            scaling_modifier: float = 1.0,
+                            antialiasing: bool = False,
+                            dilation: float = 0.3,
+                            alpha_min: float = 1.0 / 255.0,
+                            mean2d_tap: Optional[torch.Tensor] = None,
+                            cov3d_precomp: Optional[torch.Tensor] = None,
+                            colors_precomp: Optional[torch.Tensor] = None):
+    """``preprocess_packed`` in plain PyTorch on any device: the activated
+    fields through ``preprocess``, the tap added into the means, and
+    ``pack_entries``. Returns (Preprocessed, packed (N+1, 16))."""
+    pre = preprocess(
+        gaussians.xyz, gaussians.get_scaling(), gaussians.get_rotation(),
+        gaussians.get_opacity(), gaussians.get_features(),
+        gaussians.active_sh_degree, cam, image_width, image_height,
+        active_mask=gaussians.active, scaling_modifier=scaling_modifier,
+        antialiasing=antialiasing, dilation=dilation, alpha_min=alpha_min,
+        cov3d_precomp=cov3d_precomp, colors_precomp=colors_precomp)
+    if mean2d_tap is not None:
+        # NDC-unit gradient tap: the screen-space mean gradient scaled like
+        # the reference's mean2D gradients that feed densification
+        scale = torch.tensor([[0.5 * image_width, 0.5 * image_height]],
+                             dtype=torch.float32, device=mean2d_tap.device)
+        pre = pre._replace(mean2d=pre.mean2d + mean2d_tap * scale)
+    return pre, pack_entries(pre)
+
+
+def preprocess_packed(gaussians: GaussianParams, cam: CameraView,
+                      image_width: int, image_height: int, *,
+                      scaling_modifier: float = 1.0,
+                      antialiasing: bool = False,
+                      dilation: float = 0.3,
+                      alpha_min: float = 1.0 / 255.0,
+                      mean2d_tap: Optional[torch.Tensor] = None,
+                      cov3d_precomp: Optional[torch.Tensor] = None,
+                      colors_precomp: Optional[torch.Tensor] = None):
+    """Every gaussian projected and packed: (Preprocessed, packed), packed
+    the (N+1, 16) rows of ``pack_entries`` (row N zero) with the tap
+    (N, 2), where given, added into columns 0-1 scaled by (W/2, H/2).
+
+    Routed by what the inputs are: CUDA tensors with neither precomputed
+    covariances nor colours, and at most 16 SH coefficients, go through the
+    fused kernels; the Preprocessed's mean2d, conic, opacity, color and
+    invdepth are then views of the packed rows and depth, radius, rx, ry,
+    t_cut carry no gradient (binning reads them detached). Anything else
+    takes ``preprocess_packed_plain``; ``preprocess_packed.plain_cuda``
+    counts such calls on a CUDA device."""
+    kw = dict(scaling_modifier=scaling_modifier, antialiasing=antialiasing,
+              dilation=dilation, alpha_min=alpha_min)
+    if gaussians.device.type != "cuda" or cov3d_precomp is not None \
+            or colors_precomp is not None \
+            or gaussians.f_rest.shape[1] + 1 > kpre.MAX_COEFFS:
+        if gaussians.device.type == "cuda":
+            preprocess_packed.plain_cuda += 1
+        return preprocess_packed_plain(
+            gaussians, cam, image_width, image_height, mean2d_tap=mean2d_tap,
+            cov3d_precomp=cov3d_precomp, colors_precomp=colors_precomp, **kw)
+    g = gaussians
+    packed, depth, radius, rx, ry, t_cut = kpre.preprocess_packed_cuda(
+        (g.xyz, g.scaling, g.rotation, g.opacity, g.f_dc, g.f_rest,
+         g.active), mean2d_tap, cam,
+        kpre.Settings(image_width, image_height, g.active_sh_degree, **kw))
+    rows = packed[:-1]
+    return Preprocessed(mean2d=rows[:, 0:2], depth=depth, conic=rows[:, 2:5],
+                        color=rows[:, 6:9], opacity=rows[:, 5],
+                        radius=radius, invdepth=rows[:, 9], rx=rx, ry=ry,
+                        t_cut=t_cut), packed
+
+
+preprocess_packed.plain_cuda = 0   # CUDA calls on the plain path

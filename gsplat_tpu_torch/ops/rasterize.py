@@ -48,24 +48,6 @@ class Entries(NamedTuple):
     n_tiles_y: int
 
 
-def pack_rows(pre: preprocess_lib.Preprocessed) -> torch.Tensor:
-    """(N, 16) per-gaussian packed rows. Columns: 0 mx, 1 my, 2 conic_a,
-    3 conic_b, 4 conic_c, 5 opacity, 6..8 rgb, 9 invdepth, 10..15 zero."""
-    n = pre.mean2d.shape[0]
-    return torch.cat([
-        pre.mean2d, pre.conic, pre.opacity[:, None], pre.color,
-        pre.invdepth[:, None],
-        torch.zeros((n, 6), dtype=pre.mean2d.dtype, device=pre.mean2d.device),
-    ], dim=-1)
-
-
-def pack_entries(pre: preprocess_lib.Preprocessed) -> torch.Tensor:
-    """(N+1, 16) packed rows; row N is the zero row that sentinel entries
-    address."""
-    cols = pack_rows(pre)
-    return torch.cat([cols, cols.new_zeros((1, 16))], dim=0)
-
-
 PREFIX_BLOCK = 4096   # rows per block of the two-level prefix sums
 
 
@@ -196,20 +178,13 @@ def build_entries(gaussians: GaussianParams, cam: CameraView,
         m_cap = int(cap * cfg.pairs_per_gaussian)
     m_cap = -(-m_cap // cfg.chunk) * cfg.chunk
 
-    pre = preprocess_lib.preprocess(
-        gaussians.xyz, gaussians.get_scaling(), gaussians.get_rotation(),
-        gaussians.get_opacity(), gaussians.get_features(),
-        gaussians.active_sh_degree, cam, W, H,
-        active_mask=gaussians.active, scaling_modifier=scaling_modifier,
+    # the tap's screen-space gradient, scaled like the reference's mean2D
+    # gradients, feeds densification
+    pre, packed = preprocess_lib.preprocess_packed(
+        gaussians, cam, W, H, scaling_modifier=scaling_modifier,
         antialiasing=antialiasing, dilation=cfg.dilation,
-        alpha_min=cfg.alpha_min, cov3d_precomp=cov3d_precomp,
-        colors_precomp=override_color)
-    if mean2d_tap is not None:
-        # NDC-unit gradient tap: the screen-space mean gradient scaled like
-        # the reference's mean2D gradients that feed densification
-        scale = torch.tensor([[0.5 * W, 0.5 * H]], dtype=torch.float32,
-                             device=mean2d_tap.device)
-        pre = pre._replace(mean2d=pre.mean2d + mean2d_tap * scale)
+        alpha_min=cfg.alpha_min, mean2d_tap=mean2d_tap,
+        cov3d_precomp=cov3d_precomp, colors_precomp=override_color)
 
     b = binning_lib.bin_gaussians(
         pre.mean2d.detach(), pre.depth.detach(), pre.radius.detach(),
@@ -224,7 +199,7 @@ def build_entries(gaussians: GaussianParams, cam: CameraView,
     # each one's duplicates serially, and every dead slot of the layout
     # addresses the one sentinel row
     perm_ext = torch.cat([b.perm, b.perm.new_full((1,), cap)])
-    entries = pack_entries(pre).index_select(0, perm_ext).index_select(
+    entries = packed.index_select(0, perm_ext).index_select(
         0, b.gidx_sorted)
     return Entries(pre=pre, binning=b, entries=entries,
                    n_tiles_x=n_tiles_x, n_tiles_y=n_tiles_y)

@@ -62,11 +62,11 @@ from gsplat_tpu_torch.models import gaussian_model as gm
 from gsplat_tpu_torch.ops import binning as binning_lib
 from gsplat_tpu_torch.ops import losses
 from gsplat_tpu_torch.ops import preprocess as preprocess_lib
+from gsplat_tpu_torch.ops.preprocess import pack_rows
 from gsplat_tpu_torch.ops.rasterize import (_prefix_between, _tiles_to_image,
                                             composite_dispatch,
                                             masked_presort_prefix,
-                                            masked_presort_prefix_slabs,
-                                            pack_rows)
+                                            masked_presort_prefix_slabs)
 from gsplat_tpu_torch.parallel import RankParts, as_parts, dp
 from gsplat_tpu_torch.train import densify as densify_lib
 from gsplat_tpu_torch.train import trainer

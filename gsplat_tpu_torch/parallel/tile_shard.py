@@ -37,9 +37,9 @@ from gsplat_tpu_torch.core.camera import CameraView
 from gsplat_tpu_torch.models.gaussian_model import GaussianParams
 from gsplat_tpu_torch.ops import binning as binning_lib
 from gsplat_tpu_torch.ops import preprocess as preprocess_lib
+from gsplat_tpu_torch.ops.preprocess import pack_entries
 from gsplat_tpu_torch.ops.rasterize import (_tiles_to_image,
-                                            composite_dispatch, cull_kw,
-                                            pack_entries)
+                                            composite_dispatch, cull_kw)
 from gsplat_tpu_torch.parallel import as_parts
 
 

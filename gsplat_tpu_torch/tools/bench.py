@@ -221,6 +221,8 @@ def launch_counts():
     """Every CUDA kernel wrapper's launch count since its last reset."""
     from gsplat_tpu_torch.ops.kernels.composite import (
         composite_bwd_cuda, composite_fwd_cuda, slab_transmittance_cuda)
+    from gsplat_tpu_torch.ops.kernels.preprocess import (preprocess_bwd_cuda,
+                                                         preprocess_fwd_cuda)
     from gsplat_tpu_torch.ops.kernels.scan import blocked_cumsum_16_cuda
     from gsplat_tpu_torch.ops.kernels.ssim import ssim_bwd_cuda, ssim_fwd_cuda
     return {"composite_fwd": composite_fwd_cuda.launches,
@@ -228,7 +230,9 @@ def launch_counts():
             "slab_tmit": slab_transmittance_cuda.launches,
             "scan": blocked_cumsum_16_cuda.launches,
             "ssim_fwd": ssim_fwd_cuda.launches,
-            "ssim_bwd": ssim_bwd_cuda.launches}
+            "ssim_bwd": ssim_bwd_cuda.launches,
+            "preprocess_fwd": preprocess_fwd_cuda.launches,
+            "preprocess_bwd": preprocess_bwd_cuda.launches}
 
 
 def launches_since(before):

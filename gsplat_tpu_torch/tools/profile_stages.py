@@ -51,8 +51,8 @@ def run(dev, *, n=None, W=None, H=None, iters=ITERS):
     from gsplat_tpu_torch.ops import binning as binning_lib
     from gsplat_tpu_torch.ops import losses
     from gsplat_tpu_torch.ops import preprocess as preprocess_lib
-    from gsplat_tpu_torch.ops.rasterize import (composite_dispatch,
-                                                pack_entries, render)
+    from gsplat_tpu_torch.ops.preprocess import pack_entries
+    from gsplat_tpu_torch.ops.rasterize import composite_dispatch, render
     from gsplat_tpu_torch.train import trainer
 
     W0, H0, n0 = SIZES[dev.type][:3]

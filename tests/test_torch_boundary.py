@@ -3,7 +3,7 @@
 gsplat_tpu_torch (the native loader, the depth-scale CLI and the
 validation and measurement tools of ``gsplat_tpu_torch/tools`` among its
 modules), chip_smoke.py, the A/B scripts (compositor_ab.py, ssim_ab.py,
-row_cull_ab.py), rank0_writes.py and the port's root CLIs
+row_cull_ab.py, preprocess_ab.py), rank0_writes.py and the port's root CLIs
 (``*_torch.py``, bench_torch.py among them) import neither JAX, nor
 anything of the gsplat_tpu package, nor the repo's top-level ``tools``
 package, and the port's entry points run on CUDA unless the caller asks
@@ -28,6 +28,7 @@ names = [m.name for m in pkgutil.walk_packages(gsplat_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 import chip_smoke, compositor_ab, ssim_ab, rank0_writes, row_cull_ab
+import preprocess_ab
 import metrics_torch, full_eval_torch, convert_torch, view_torch
 import make_depth_scale_torch, bench_torch
 bad = sorted(m for m in sys.modules

@@ -25,6 +25,14 @@ version on the same inputs:
   mask the kernels stage (``cull_rects_cuda``) equal to the plain formula's
   row for row, nothing culled where alpha_min <= 0; the backward gives the
   same bits twice;
+- the fused preprocess (csrc/preprocess_fwd.cu, preprocess_bwd.cu) against
+  the plain path on the card: the packed rows, depth and t_cut within rtol
+  1e-5 / atol 1e-6, radius / rx / ry equal, every raw field's gradient and
+  the tap's at the gradient gate, over SH degrees 0-3 with the active degree
+  below the maximum, antialiasing on and off, a scaling modifier, dead rows
+  and the edge rows of tests/torch_preprocess_cases.py; the backward the
+  same bits twice; ``render`` launching each kernel once a call, and the
+  plain path with ``override_color``;
 - the blocked prefix sum: against a float64 cumsum no more than twice as far
   as ``torch.cumsum`` in f32 is, exact on integers, the same bits on a
   second launch; the sharded renders on the card against the same on the
@@ -50,7 +58,9 @@ from gsplat_tpu_torch.ops import ssim as tssim
 from gsplat_tpu_torch.ops.composite_ref import (composite_tiles_plain,
                                                 cull_rects_plain,
                                                 slab_transmittance_plain)
+from gsplat_tpu_torch.ops import preprocess as tpre
 from gsplat_tpu_torch.ops.kernels import composite as tcomp
+from gsplat_tpu_torch.ops.kernels import preprocess as kpre
 from gsplat_tpu_torch.ops.kernels import scan as kscan
 from gsplat_tpu_torch.ops.kernels import ssim as kssim
 from gsplat_tpu_torch.parallel import prim_shard, sharded, tile_shard
@@ -58,6 +68,10 @@ from gsplat_tpu_torch.train import trainer
 
 from torch_cull_cases import CFG as CULL_CFG
 from torch_cull_cases import KINDS, frame
+from torch_preprocess_cases import CASE_IDS, CASES
+from torch_preprocess_cases import H as PRE_H
+from torch_preprocess_cases import W as PRE_W
+from torch_preprocess_cases import same, scene, with_leaves
 
 pytestmark = pytest.mark.cuda
 
@@ -198,6 +212,98 @@ def test_render_on_card_backpropagates_through_kernel(cuda_device):
     for k in gm.TRAINABLE_FIELDS:
         torch.testing.assert_close(grads[1][k], grads[0][k], **GRAD_TOL)
     assert float(grads[1]["xyz"].abs().max()) > 0
+
+
+PRE_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("deg,active_deg,aa", CASES, ids=CASE_IDS)
+def test_preprocess_kernels_match_plain_on_card(deg, active_deg, aa,
+                                                cuda_device):
+    """The fused pair (``preprocess_packed`` on the card) against the plain
+    path on the same card: the forward's packed rows and binning columns,
+    and autograd's gradients of every raw field and the tap under one
+    random cotangent of the packed rows (culled and dead rows included)."""
+    g, cam = scene(deg=deg, active_deg=active_deg, device=cuda_device)
+    kw = dict(scaling_modifier=0.7 if aa else 1.0, antialiasing=aa,
+              dilation=0.3, alpha_min=1.0 / 255.0)
+    ct = torch.tensor(np.random.default_rng(9).standard_normal(
+        (g.capacity + 1, 16)), dtype=torch.float32, device=cuda_device)
+    outs = []
+    for fused in (False, True):
+        gg, leaves = with_leaves(g)
+        tap = torch.zeros((g.capacity, 2), device=cuda_device,
+                          requires_grad=True)
+        before = (kpre.preprocess_fwd_cuda.launches,
+                  kpre.preprocess_bwd_cuda.launches)
+        run = tpre.preprocess_packed if fused else tpre.preprocess_packed_plain
+        pre, packed = run(gg, cam, PRE_W, PRE_H, mean2d_tap=tap, **kw)
+        (packed * ct).sum().backward()
+        torch.cuda.synchronize()
+        assert (kpre.preprocess_fwd_cuda.launches,
+                kpre.preprocess_bwd_cuda.launches) == \
+            tuple(b + fused for b in before)
+        outs.append((packed.detach(), pre,
+                     {k: v.grad for k, v in leaves.items()}, tap.grad))
+    (p0, r0, g0, t0), (p1, r1, g1, t1) = outs
+    torch.testing.assert_close(p1, p0, equal_nan=True, **PRE_TOL)
+    assert not p1[:, 10:].any() and not p1[-1].any()
+    for k in ("depth", "t_cut"):
+        torch.testing.assert_close(getattr(r1, k), getattr(r0, k).detach(),
+                                   **PRE_TOL)
+    for k in ("radius", "rx", "ry"):
+        assert torch.equal(getattr(r1, k), getattr(r0, k).detach()), k
+    for k in ("mean2d", "conic", "opacity", "color", "invdepth"):
+        torch.testing.assert_close(getattr(r1, k), getattr(r0, k),
+                                   equal_nan=True, **PRE_TOL)
+    for k in gm.TRAINABLE_FIELDS:
+        torch.testing.assert_close(g1[k], g0[k], equal_nan=True, **GRAD_TOL)
+    torch.testing.assert_close(t1, t0, **GRAD_TOL)
+    assert float(r0.radius[7:].gt(0).float().mean()) > 0.5
+
+
+def test_preprocess_backward_kernel_gives_the_same_bits_twice(cuda_device):
+    g, cam = scene(deg=3, device=cuda_device)
+    fields = (g.xyz, g.scaling, g.rotation, g.opacity, g.f_dc, g.f_rest,
+              g.active)
+    s = kpre.Settings(PRE_W, PRE_H, 3, 1.0, True, 0.3, 1.0 / 255.0)
+    d = torch.tensor(np.random.default_rng(2).standard_normal(
+        (g.capacity + 1, 16)), dtype=torch.float32, device=cuda_device)
+    a = kpre.preprocess_bwd_cuda(fields, cam, s, d, True)
+    b = kpre.preprocess_bwd_cuda(fields, cam, s, d, True)
+    for x, y in zip(a, b):
+        same(x, y)
+
+
+def test_render_on_card_launches_the_preprocess_kernels(cuda_device):
+    """``render`` with a gradient: one forward launch, one backward launch
+    in the backward; with ``override_color`` the plain path (its counter
+    moves, the kernels' do not), at the CPU's image."""
+    g, cam = _scene(cuda_device)
+    cfg = _cfg(32, 32, 64)
+    bg = torch.full((3,), 0.25, device=cuda_device)
+    gg, leaves = with_leaves(g)
+    f0, b0, p0 = (kpre.preprocess_fwd_cuda.launches,
+                  kpre.preprocess_bwd_cuda.launches,
+                  tpre.preprocess_packed.plain_cuda)
+    out = rasterize.render(gg, cam, 96, 64, bg, cfg, clamp=False)
+    assert kpre.preprocess_fwd_cuda.launches == f0 + 1
+    out.image.mean().backward()
+    assert kpre.preprocess_bwd_cuda.launches == b0 + 1
+    assert tpre.preprocess_packed.plain_cuda == p0
+    colors = torch.tensor(np.random.default_rng(4).uniform(
+        0, 1, (g.capacity, 3)), dtype=torch.float32)
+    with torch.no_grad():
+        img = rasterize.render(g, cam, 96, 64, bg, cfg, clamp=False,
+                               override_color=colors.to(cuda_device)).image
+    assert (kpre.preprocess_fwd_cuda.launches,
+            kpre.preprocess_bwd_cuda.launches) == (f0 + 1, b0 + 1)
+    assert tpre.preprocess_packed.plain_cuda == p0 + 1
+    gc, camc = _scene("cpu")
+    with torch.no_grad():
+        want = rasterize.render(gc, camc, 96, 64, bg.cpu(), cfg, clamp=False,
+                                override_color=colors).image
+    torch.testing.assert_close(img.cpu(), want, **IMG_TOL)
 
 
 def _frame_tables(shape, device):
