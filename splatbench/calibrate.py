@@ -57,20 +57,19 @@ def calib_rank(rank: int, world: int, args: dict, queue=None):
                     row["control"] = check.frame_numbers(
                         R.reference_frames(p0, view, sample, tf32=True), ref)
             else:
-                R.setup_train()
+                state = R.setup_train()[0]
+                post = R.program.rows(state) if R.events else None
+                del state
                 drive.free(dev)
                 p0, view = R.reference_inputs()
-                ref = R.reference_train(p0, view)
-                row["program"] = check.train_numbers(R.program_readings, ref)
+                row["program"], ref = R.train_numbers(p0, view, post)
+                del post
                 row["program_raw"] = {k: R.program_readings[k] for k in
                                       ("loss", "grad_norm", "change_norm")}
                 row["reference_raw"] = steps_readings(ref)
                 row["pairs"] = [f.pairs for f in ref.frames]
                 if args["control"]:
-                    ctrl = R.reference_train(p0, view, tf32=True)
-                    row["control"] = check.train_numbers(
-                        steps_readings(ctrl), ref)
-                    row["control_raw"] = steps_readings(ctrl)
+                    row["control"] = R.control_numbers(p0, view, ref)
             row["notes"] = R.r.notes
             row["seconds"] = time.perf_counter() - t0
             del R

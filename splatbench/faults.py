@@ -83,5 +83,41 @@ def plant_half_frame():
     program.frame = frame
 
 
+def plant_no_prune():
+    """A densify event that prunes nothing."""
+    from gsplat_tpu_torch.train import densify
+    real = densify.densify_and_prune
+
+    def densify_and_prune(*a, **k):
+        return real(*a, **dict(k, min_opacity=0.0,
+                               use_screen_size_prune=False))
+    densify.densify_and_prune = densify_and_prune
+
+
+def plant_split_unscaled():
+    """A split whose children keep their parent's scales (no 1/1.6)."""
+    from gsplat_tpu_torch.train import densify
+
+    class Torch:
+        def __getattr__(self, name):
+            return getattr(torch, name)
+
+        @staticmethod
+        def log(x):
+            return torch.log(x * 1.6)
+    densify.torch = Torch()
+
+
+def plant_stats_shifted():
+    """A view's densification statistics added to the wrong rows: each
+    row's to the next row's."""
+    from gsplat_tpu_torch.train import densify
+    real = densify.add_densification_stats
+
+    def add_densification_stats(stats, radii, mean2d_grad):
+        return real(stats, radii.roll(1, 0), mean2d_grad.roll(1, 0))
+    densify.add_densification_stats = add_densification_stats
+
+
 def plant(name: str):
     globals()[f"plant_{name}"]()

@@ -3,7 +3,8 @@ the one module of the benchmark that imports it. Everything here calls the
 system's own entry points with the benchmark's inputs, as its training loop
 and renderer call them: ``train/trainer.py:train_step``,
 ``parallel/dp.py:make_dp_train_step`` and ``camera_inputs``,
-``ops/rasterize.py:render``, ``scene/cameras.py:Camera``.
+``ops/rasterize.py:render``, ``scene/cameras.py:Camera``, and the loop's
+events, ``trainer.densify_step`` and ``opacity_reset_step``.
 """
 from __future__ import annotations
 
@@ -24,30 +25,42 @@ from gsplat_tpu_torch.train import trainer
 LEAVES = gm.TRAINABLE_FIELDS
 
 
-def gaussians(p: dict, sh_degree: int) -> gm.GaussianParams:
-    """The system's splats from the benchmark's parameters, all live."""
+def gaussians(p: dict, sh_degree: int, capacity: int = 0
+              ) -> gm.GaussianParams:
+    """The system's splats from the benchmark's parameters, all live, in
+    buffers padded with dead rows to ``capacity`` where it is larger."""
     n = p["xyz"].shape[0]
-    return gm.GaussianParams(
+    g = gm.GaussianParams(
         **{k: p[k] for k in LEAVES},
         active=torch.ones(n, dtype=torch.bool, device=p["xyz"].device),
         active_sh_degree=sh_degree)
+    return gm.pad_to_capacity(g, capacity) if capacity > n else g
 
 
-def init_state(p: dict, sh_degree: int, first_step: int):
-    """A training state at iteration ``first_step`` with fresh moments."""
+def init_state(p: dict, sh_degree: int, first_step: int, capacity: int = 0,
+               n_images: int = 1):
+    """A training state at iteration ``first_step`` with fresh moments and
+    ``n_images`` exposures."""
     return dataclasses.replace(
-        trainer.init_state(gaussians(p, sh_degree), 1), step=first_step)
+        trainer.init_state(gaussians(p, sh_degree, capacity), n_images),
+        step=first_step)
 
 
-def camera(i: int, pose, fov, image: np.ndarray) -> Camera:
+def camera(i: int, pose, fov, image: np.ndarray, depth=None,
+           exposure: bool = False) -> Camera:
     """A scene camera as the system's loader makes one: the host image
-    (3,H,W) in [0,1], an all-ones alpha mask, no depth."""
+    (3,H,W) in [0,1], an all-ones alpha mask; ``depth`` (inverse depth,
+    mask), each (1,H,W), where the scene gives one, else none; with
+    ``exposure`` its own exposure, number ``i``."""
     (R, T), (fovx, fovy) = pose, fov
     H, W = image.shape[1:]
+    inv, mask = depth if depth is not None else (None, None)
+    extra = dict(exposure_idx=i) if exposure else {}
     return Camera(uid=i, colmap_id=i, R=R, T=T, FoVx=fovx, FoVy=fovy,
                   image=image, alpha_mask=np.ones((1, H, W), np.float32),
-                  invdepthmap=None, depth_mask=None, depth_reliable=False,
-                  image_name=f"{i:05d}", width=W, height=H)
+                  invdepthmap=inv, depth_mask=mask,
+                  depth_reliable=depth is not None,
+                  image_name=f"{i:05d}", width=W, height=H, **extra)
 
 
 def view(cam: Camera, device) -> CameraView:
@@ -91,12 +104,41 @@ def right_size(g, views, W, H, bg, first_ppg: float):
         pad_cap=max(rcfg.chunk, int(pad * 1.5))), pairs)
 
 
-def step_kw(W, H, rcfg, extent):
-    """The loop's step arguments: default optimisation, no depth, no
-    exposure, dense Adam, no antialiasing."""
-    return dict(image_width=W, image_height=H, opt=OptimizationConfig(),
-                rcfg=rcfg, spatial_lr_scale=extent, antialiasing=False,
-                use_sparse_adam=False, train_test_exp=False, use_depth=False)
+def step_kw(W, H, rcfg, extent, options: dict, optimization: dict):
+    """The loop's step arguments: the configuration's step options
+    (``spec.options``) and an ``OptimizationConfig`` with the fields its
+    ``optimization`` block gives, every other field at its default."""
+    return dict(image_width=W, image_height=H,
+                opt=dataclasses.replace(OptimizationConfig(), **optimization),
+                rcfg=rcfg, spatial_lr_scale=extent,
+                antialiasing=options["antialiasing"],
+                use_sparse_adam=options["sparse_adam"],
+                train_test_exp=options["train_test_exp"],
+                use_depth=options["use_depth"])
+
+
+def events(kw, iteration: int):
+    """The loop's events after the step of ``iteration``
+    (``train/loop.py``, on a black background): (densify, with the
+    screen-size prune, opacity reset)."""
+    opt = kw["opt"]
+    before = iteration < opt.densify_until_iter
+    densify = (before and iteration > opt.densify_from_iter
+               and iteration % opt.densification_interval == 0)
+    reset = before and iteration % opt.opacity_reset_interval == 0
+    return densify, iteration > opt.opacity_reset_interval, reset
+
+
+def densify(state, noise, extent: float, kw, screen_size_prune: bool):
+    """``trainer.densify_step`` as the loop calls it, with the split
+    samples ``noise`` handed in: (state, overflow)."""
+    return trainer.densify_step(state, None, extent, opt=kw["opt"],
+                                use_screen_size_prune=screen_size_prune,
+                                noise=noise)
+
+
+def opacity_reset(state):
+    return trainer.opacity_reset_step(state)
 
 
 def train_step(state, inputs, bg, kw):
@@ -127,3 +169,22 @@ def adam_first_grad_norms(state) -> dict:
 
 def params(state) -> dict:
     return gm.trainables(state.gaussians)
+
+
+def iteration(state) -> int:
+    return state.step
+
+
+def rows(state) -> dict:
+    """Every per-row tensor of a state that a densify event writes, by
+    name: the leaves, ``active``, Adam's moments (``mu.<leaf>``,
+    ``nu.<leaf>``) and the densification statistics (``xyz_gradient_accum``,
+    ``denom``, ``max_radii2d``)."""
+    g, a, st = state.gaussians, state.adam, state.stats
+    out = {k: getattr(g, k) for k in LEAVES}
+    out["active"] = g.active
+    out.update({f"mu.{k}": a.mu[k] for k in LEAVES})
+    out.update({f"nu.{k}": a.nu[k] for k in LEAVES})
+    out.update(xyz_gradient_accum=st.xyz_gradient_accum, denom=st.denom,
+               max_radii2d=st.max_radii2d)
+    return out

@@ -392,11 +392,12 @@ class Frame(NamedTuple):
 @full_f32()
 def render(p: dict, view: View, W: int, H: int, bg: torch.Tensor,
            sh_degree: int, prod: Products, *, with_grad: bool = False,
-           d_image_fn=None):
+           d_image_fn=None, mean2d_grad: bool = False):
     """One frame. Without ``with_grad``: a ``Frame``. With it,
     ``d_image_fn(image) -> (value, d image)`` gives the loss and its
     gradient at the clamped image, and the result is (Frame, value, the
-    gradients of ``p``'s leaves by key)."""
+    gradients of ``p``'s leaves by key); with ``mean2d_grad`` also that of
+    the splats' screen-space means in pixels, (N, 2), under ``"mean2d"``."""
     with torch.set_grad_enabled(with_grad):
         pr = project(p, view, W, H, sh_degree, prod)
         rows = pack(pr)
@@ -426,4 +427,6 @@ def render(p: dict, view: View, W: int, H: int, bg: torch.Tensor,
     out = {k: (torch.zeros_like(v) if gr is None else gr)
            for (k, v), gr in zip(((k, v) for k, v in p.items()
                                   if v.requires_grad), grads)}
+    if mean2d_grad:
+        out["mean2d"] = d_rows[:, :2]
     return frame, value, out

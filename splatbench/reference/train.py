@@ -9,6 +9,11 @@ A batch of views sums each view's loss and gradients through ``reduce``
 (the identity on one process; an all-reduce over ranks for camera data
 parallelism) and divides by the batch. Nothing here imports the system
 under test.
+
+The default reference of a configuration (``reference`` absent): its
+interface is ``accept``, ``render``, ``Products`` and ``train_steps``. It
+implements none of the step options, and refuses a configuration that
+turns one on.
 """
 from __future__ import annotations
 
@@ -18,10 +23,23 @@ import numpy as np
 import torch
 
 from splatbench.reference import raster
+from splatbench.reference.raster import Products, render  # noqa: F401
 
 LAMBDA_DSSIM = 0.2
 B1, B2, EPS = 0.9, 0.999, 1e-15
 LEAVES = ("xyz", "f_dc", "f_rest", "scaling", "rotation", "opacity")
+OPTIONS = frozenset()   # the step options this reference implements
+
+
+def accept(options: dict, implemented=OPTIONS):
+    """Raises where ``options`` (``spec.options``) turns on an option that
+    is not ``implemented``: the check never holds the system to
+    mathematics the reference does not follow."""
+    missing = sorted(k for k, on in options.items()
+                     if on and k not in implemented)
+    if missing:
+        raise ValueError(f"the reference does not implement the step "
+                         f"options {missing}")
 
 
 def lr_groups(step: int, extent: float, opt: dict) -> dict:
@@ -94,28 +112,58 @@ def identity(ts: List[torch.Tensor]) -> List[torch.Tensor]:
 class Steps:
     """What ``train_steps`` read: each step's loss, the first step's
     gradient norm by leaf, the norm of each leaf's change after all
-    steps, and the frames' counts (pairs, contributions)."""
+    steps, and the frames' counts (pairs, contributions); with ``stats``
+    the densification statistics over the steps' views and the state
+    after the steps (``params``, ``mu``, ``nu``)."""
 
     def __init__(self):
         self.loss: List[float] = []
         self.grad_norm: dict = {}
         self.change_norm: dict = {}
         self.frames: list = []
+        self.stats: dict = {}
+        self.params: dict = {}
+        self.mu: dict = {}
+        self.nu: dict = {}
+
+
+def add_stats(stats: dict, radius, mean2d_grad, W: int, H: int) -> dict:
+    """One view's densification statistics added (the 3DGS code's
+    ``add_densification_stats``): for every splat with a radius, the norm
+    of its screen-space mean's gradient in NDC units (pixels x W/2, H/2),
+    a count, and the largest radius."""
+    vis = radius > 0
+    scale = torch.tensor([0.5 * W, 0.5 * H], device=radius.device)
+    g = torch.linalg.norm(mean2d_grad * scale, dim=-1)
+    return {"xyz_gradient_accum": stats["xyz_gradient_accum"]
+            + torch.where(vis, g, torch.zeros_like(g)),
+            "denom": stats["denom"] + vis.float(),
+            "max_radii2d": torch.where(
+                vis, torch.maximum(stats["max_radii2d"], radius),
+                stats["max_radii2d"])}
 
 
 @raster.full_f32()
 def train_steps(p0: dict, batches: Sequence[Sequence[tuple]], *, W: int,
                 H: int, bg, sh_degree: int, extent: float, opt: dict,
                 first_step: int, prod: raster.Products,
-                reduce: Callable = identity, batch: int = 1) -> Steps:
+                reduce: Callable = identity, batch: int = 1,
+                stats: bool = False) -> Steps:
     """Train ``len(batches)`` steps from the parameters ``p0`` (left
     unchanged). ``batches[s]`` holds this process's (view, ground truth)
     of step s; with ``reduce`` summing over ranks, ``batch`` is the whole
-    batch. Step s is number ``first_step + s + 1``."""
+    batch. Step s is number ``first_step + s + 1``. With ``stats`` (one
+    process) it also gathers the densification statistics of every view
+    and keeps the state after the steps."""
     out = Steps()
     params = {k: p0[k].detach().clone() for k in LEAVES}
     mu = {k: torch.zeros_like(v) for k, v in params.items()}
     nu = {k: torch.zeros_like(v) for k, v in params.items()}
+    if stats:
+        if batch != 1:
+            raise ValueError("densification statistics on one process only")
+        z = torch.zeros_like(params["opacity"])
+        out.stats = {"xyz_gradient_accum": z, "denom": z, "max_radii2d": z}
     for s, views in enumerate(batches):
         leaf = {k: v.requires_grad_() for k, v in params.items()}
         loss = torch.zeros((), device=bg.device)
@@ -123,7 +171,10 @@ def train_steps(p0: dict, batches: Sequence[Sequence[tuple]], *, W: int,
         for view, gt in views:
             frame, value, g = raster.render(
                 leaf, view, W, H, bg, sh_degree, prod, with_grad=True,
-                d_image_fn=loss_fn(gt, prod))
+                d_image_fn=loss_fn(gt, prod), mean2d_grad=stats)
+            if stats:
+                out.stats = add_stats(out.stats, frame.radius, g["mean2d"],
+                                      W, H)
             out.frames.append(frame._replace(image=None, invdepth=None,
                                              radius=None, t_final=None))
             loss = loss + value
@@ -142,4 +193,6 @@ def train_steps(p0: dict, batches: Sequence[Sequence[tuple]], *, W: int,
                               lr_groups(first_step + s + 1, extent, opt))
     out.change_norm = {k: float(torch.linalg.norm(params[k] - p0[k]))
                        for k in LEAVES}
+    if stats:
+        out.params, out.mu, out.nu = params, mu, nu
     return out

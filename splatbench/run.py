@@ -66,8 +66,14 @@ def init_rank(rank: int, world: int, args: dict):
     dev = torch.device("cuda", rank) if cuda else torch.device("cpu")
     if cuda:
         torch.cuda.set_device(dev)
-    elif world > 1:
-        torch.set_num_threads(1)     # ranks sharing the host's cores
+    if world > 1:
+        # each rank launches its card's work from one thread: no pools of
+        # intra-op threads of the ranks' processes competing for the cores
+        torch.set_num_threads(1)
+        try:
+            torch.set_num_interop_threads(1)
+        except RuntimeError:    # the pool already runs: it stays as it is
+            pass
     all_reduce = broadcast_int = None
     if world > 1:
         os.environ.update(LOCAL_RANK=str(rank), RANK=str(rank),

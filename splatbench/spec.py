@@ -11,7 +11,15 @@ to one of them sits in a file of its own that is found by its name:
 - ``splatbench/metrics/<metric>.py``: the reader of a per-layer metric, a
   ``read(ctx)`` that returns a number or None;
 - ``splatbench/limits/<cell>.json``: the limit of each number the cell's
-  check compares.
+  check compares;
+- ``splatbench/scenes/<kind>.py`` and ``splatbench/cameras/<kind>.py``: the
+  scene and the camera path a configuration's ``scene.kind`` and
+  ``camera.kind`` name;
+- ``splatbench/reference/<name>.py``: the plain reference a configuration's
+  ``reference`` names (``train`` where it names none).
+
+A configuration's optional ``options`` block holds the step options
+(``OPTIONS``), each off where it is not given.
 """
 from __future__ import annotations
 
@@ -21,6 +29,8 @@ from pathlib import Path
 from typing import List, NamedTuple
 
 ROOT = Path(__file__).resolve().parents[1]
+OPTIONS = ("antialiasing", "sparse_adam", "train_test_exp", "use_depth")
+_MODULES: dict = {}
 
 
 class Cell(NamedTuple):
@@ -73,14 +83,36 @@ def statistic(metric: str, root: Path = ROOT) -> str:
                  / f"{metric}.json")["statistic"]
 
 
+def module(folder: str, name: str, root: Path = ROOT):
+    """The module ``splatbench/<folder>/<name>.py`` of the checkout at
+    ``root``, loaded from its file once."""
+    path = (Path(root) / "splatbench" / folder / f"{name}.py").resolve()
+    if path not in _MODULES:
+        if not path.exists():
+            raise KeyError(f"no {folder} module {name!r} ({path})")
+        spec = importlib.util.spec_from_file_location(
+            "splatbench_" + "_".join((folder, name)).replace(
+                ".", "_").replace("-", "_"), path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _MODULES[path] = mod
+    return _MODULES[path]
+
+
 def reader(metric: str, root: Path = ROOT):
     """The module of a per-layer metric's reader, loaded from its file:
     ``read(ctx)``, and ``AGGREGATE`` (``max``; the mean over ranks where it
     is absent)."""
-    path = Path(root) / "splatbench" / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(
-        "splatbench_metric_" + metric.replace(".", "_").replace("-", "_"),
-        path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return module("metrics", metric, root)
+
+
+def options(cfg: dict) -> dict:
+    """The step options of a configuration: its ``options`` block, each
+    option off where it is not given (``sparse_adam`` also read from a
+    top-level key)."""
+    given = dict(cfg.get("options", {}))
+    unknown = set(given) - set(OPTIONS)
+    if unknown:
+        raise ValueError(f"unknown step options {sorted(unknown)}")
+    given.setdefault("sparse_adam", cfg.get("sparse_adam", False))
+    return {k: bool(given.get(k, False)) for k in OPTIONS}

@@ -8,7 +8,7 @@ from __future__ import annotations
 import pytest
 import torch
 
-from splatbench import calibrate, counts, run, spec
+from splatbench import calibrate, counts, run, scene, spec
 from splatbench.reference import raster
 from splatbench.tests import tiny
 
@@ -19,15 +19,19 @@ def root(tmp_path_factory):
 
 
 @pytest.mark.parametrize("cell", ["m360_3m.train_orbit",
-                                  "m360_3m.render_orbit"])
+                                  "m360_3m.render_orbit",
+                                  "m360_densify.train_densify"])
 def test_system_passes_control_fails(root, cell):
     limits = spec.cell(cell, root).limits
     args = dict(workload=cell, seeds=[3, 4], control=True, fault="",
                 out="", device="cpu", root=str(root))
     rows = run.spawn(calibrate.calib_rank, 1, args)
     for row in rows:
-        assert all(v <= limits[k] for k, v in row["program"].items()), row
-        assert any(v > limits[k] for k, v in row["control"].items()), row
+        judged = {k: v for k, v in row["program"].items() if k in limits}
+        assert len(judged) == len(limits), row
+        assert all(v <= limits[k] for k, v in judged.items()), row
+        assert any(v > limits[k] for k, v in row["control"].items()
+                   if k in limits), row
 
 
 class _Spy(raster.Products):
@@ -160,3 +164,30 @@ def test_counts_by_hand(name):
 
 
 W_H = 64 * 32
+
+
+def test_surfaces_truth_matches_its_splats(root):
+    """``capture360_surfaces``: one truth seen from every pose, and each
+    object splat the colour of the truth where its centre is seen, except
+    at a cell's edge."""
+    cfg = spec.cell("m360_densify.train_densify", root).config
+    assert cfg["scene"]["kind"] == "capture360_surfaces"
+    p, poses, gt = scene.make(cfg, 2 ** 31 + 23, torch.device("cpu"), 3,
+                              root)
+    n_obj = int(cfg["gaussians"] * cfg["scene"]["object_share"])
+    colour = p["f_dc"][:n_obj] * raster.SH_C0 + 0.5
+    W, H, f = cfg["width"], cfg["height"], cfg["camera"]["focal_px"]
+    for k, (R, T) in enumerate(poses):
+        R = torch.tensor(R, dtype=torch.float32)
+        c = -(R @ torch.tensor(T, dtype=torch.float32))
+        xyz = p["xyz"][:n_obj]
+        cam = (xyz - c) @ R
+        u = torch.round(f * cam[:, 0] / cam[:, 2] + (W - 1) / 2).long()
+        v = torch.round(f * cam[:, 1] / cam[:, 2] + (H - 1) / 2).long()
+        # the near side of the object, inside the frame
+        seen = ((xyz * (c - xyz)).sum(1) > 0.3 * torch.linalg.norm(
+            xyz, dim=1) * torch.linalg.norm(c - xyz, dim=1))
+        seen &= (u >= 0) & (u < W) & (v >= 0) & (v < H)
+        truth = torch.from_numpy(gt[k])[:, v[seen], u[seen]].T
+        same = ((truth - colour[seen]).abs().amax(1) < 1e-6).float()
+        assert seen.sum() > 50 and same.mean() > 0.6, (k, same.mean())

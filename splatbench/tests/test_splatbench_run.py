@@ -10,7 +10,9 @@ import sys
 
 import pytest
 
-from splatbench import run
+import torch
+
+from splatbench import drive, run, spec
 from splatbench.tests import tiny
 
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
@@ -22,7 +24,8 @@ def root(tmp_path_factory):
 
 
 @pytest.mark.parametrize("cell,trace", [
-    ("m360_3m.train_orbit", False), ("m360_3m.render_orbit", True)])
+    ("m360_3m.train_orbit", False), ("m360_3m.render_orbit", True),
+    ("m360_densify.train_densify", True)])
 def test_result_line(root, cell, trace):
     res = run.run(cell, 2 ** 31 + 11, 0.5, trace, device="cpu", root=root)
     want = KEYS + (["breakdown"] if "breakdown" in res else []) + ["checks"]
@@ -42,11 +45,35 @@ def test_result_line(root, cell, trace):
     ("m360_3m.train_orbit", "unchanged"),
     ("m360_3m.train_orbit", "half_batch"),
     ("m360_3m.render_orbit", "frame_altered"),
-    ("m360_3m.render_orbit", "half_frame")])
+    ("m360_3m.render_orbit", "half_frame"),
+    ("m360_densify.train_densify", "unchanged"),
+    ("m360_densify.train_densify", "half_batch"),
+    ("m360_densify.train_densify", "no_prune"),
+    ("m360_densify.train_densify", "split_unscaled"),
+    ("m360_densify.train_densify", "stats_shifted")])
 def test_fault_fails_the_check(root, cell, fault):
     res = run.run(cell, 2 ** 31 + 13, 0.3, False, device="cpu", root=root,
                   fault=fault)
     assert not res["correct"], res["checks"]
+
+
+def test_densify_agrees_with_the_reference(root):
+    """The tiny densification mix: the check steps' event clones, splits
+    and prunes, and the program's event agrees with the reference's on
+    the program's state before it, row for row; the window's events are
+    timed and read as densify spans, and its first is made again and
+    counted after the close."""
+    cell = spec.cell("m360_densify.train_densify", root)
+    r = drive.Run(cell, 2 ** 31 + 19, 3.0, False, torch.device("cpu")).run()
+    assert r.ok, r.checks
+    assert r.checks["live_rows_gap"]["value"] == 0
+    assert min(r.check_event[k] for k in ("clones", "splits", "pruned")) > 0
+    assert r.check_event["overflow"] == 0
+    assert len(r.densify_s) == r.events > 0
+    assert len(r.event_counts) == 3
+    assert r.failed == 0
+    ctx = drive.layer_context(cell, r, 1)
+    assert spec.reader("densify_ms.train", root).read(ctx) > 0
 
 
 @pytest.mark.parametrize("fault", ["", "no_exchange", "half_batch",

@@ -1,6 +1,8 @@
 """BENCHMARK.json against the contract's shape, every cell and metric
-resolving to its files, and a cell, a traffic mix and a per-layer metric
-added as files alone."""
+resolving to its files; a cell, a traffic mix, a per-layer metric, a scene
+kind, a camera path, step options and a reference added as files alone;
+the default reference refusing options; the step arguments of a
+configuration without options."""
 from __future__ import annotations
 
 import json
@@ -8,7 +10,7 @@ import re
 
 import pytest
 
-from splatbench import run, spec
+from splatbench import program, run, spec
 from splatbench.tests import tiny
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -61,10 +63,56 @@ def test_metric_shape(metric):
         assert metric["moves"] in ends
 
 
+SCENE_WITH_DEPTH = '''
+"""capture360's splats, and per-pose inverse-depth maps with empty masks."""
+import numpy as np
+
+from splatbench.scenes import capture360
+
+
+def params(cfg, seed, device):
+    return capture360.params(cfg, seed, device)
+
+
+def depths(cfg, poses, seed):
+    shape = (len(poses), 1, cfg["height"], cfg["width"])
+    return (np.full(shape, 0.25, np.float32), np.zeros(shape, np.float32))
+'''
+
+CAMERA_PATH = '''
+"""An orbit twice as high, looking at the same point."""
+from splatbench.cameras import orbit
+
+
+def poses(cfg, count):
+    cam = dict(cfg["camera"], height=2 * cfg["camera"]["height"])
+    return orbit.poses(dict(cfg, camera=cam), count)
+'''
+
+REFERENCE = '''
+"""The default reference, which also follows the per-image exposures and
+the depth loss where, as in this configuration, they change nothing: each
+check step trains its own pose, whose exposure is still the identity, and
+the depth masks are empty."""
+from splatbench.reference import train
+from splatbench.reference.train import Products, render, train_steps  # noqa
+
+OPTIONS = frozenset({"train_test_exp", "use_depth"})
+
+
+def accept(options):
+    train.accept(options, OPTIONS)
+'''
+
+
 def test_added_as_files_alone(tmp_path):
     """A configuration, a traffic mix, a per-layer metric and a cell added
-    as new files and entries run, with no existing file edited."""
+    as new files and entries run, with no existing file edited; and a
+    configuration with its own scene kind, camera path, step options and
+    reference module, added as new files, trains and passes its check."""
     root = tiny.make_root(tmp_path)
+    before = {p: p.read_bytes() for p in root.rglob("*") if p.is_file()
+              and p.name != "BENCHMARK.json"}
     cfg = json.loads((root / "splatbench/configs/m360_3m.json").read_text())
     cfg.update(name="small_orbit", gaussians=1500, capacity=1500)
     (root / "splatbench/configs/small_orbit.json").write_text(json.dumps(cfg))
@@ -92,8 +140,93 @@ def test_added_as_files_alone(tmp_path):
         name="frames_traced.render", unit="frames", better="higher",
         source="device_trace", layer="host", moves="frame_ms",
         workloads=["small_orbit.render_short"]))
+
+    # a configuration of its own scene kind, camera path, options and
+    # reference, under the training mix
+    (root / "splatbench/scenes/capture360_depth.py").write_text(
+        SCENE_WITH_DEPTH)
+    (root / "splatbench/cameras/orbit_high.py").write_text(CAMERA_PATH)
+    (root / "splatbench/reference/exposure_depth.py").write_text(REFERENCE)
+    cfg = json.loads((root / "splatbench/configs/m360_3m.json").read_text())
+    cfg.update(name="depth_orbit", gaussians=1500, capacity=2000,
+               reference="exposure_depth",
+               options={"train_test_exp": True, "use_depth": True})
+    cfg["scene"]["kind"] = "capture360_depth"
+    cfg["camera"]["kind"] = "orbit_high"
+    (root / "splatbench/configs/depth_orbit.json").write_text(
+        json.dumps(cfg))
+    (root / "splatbench/limits/depth_orbit.train_orbit.json").write_text(
+        (root / "splatbench/limits/m360_3m.train_orbit.json").read_text())
+    bench["configs"].append(dict(name="depth_orbit", source="a test",
+                                 file="splatbench/configs/depth_orbit.json",
+                                 reduced=[], why="a test"))
+    bench["workloads"].append(dict(name="depth_orbit.train_orbit",
+                                   config="depth_orbit",
+                                   traffic="train_orbit", chips=1,
+                                   why="a test"))
+    for m in bench["end_to_end"]:
+        if m["name"] == "train_pixels_per_s":
+            m["workloads"].append("depth_orbit.train_orbit")
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     res = run.run("small_orbit.render_short", 7, 0.5, True, device="cpu",
                   root=root)
     assert res["correct"], res["checks"]
     assert res["metrics"]["frames_traced.render"]["value"] == 2.0
+
+    seen = {}
+    real_step = program.train_step
+
+    def step(state, inputs, bg, kw):
+        seen.update(kw=kw, n_exposures=state.exposure.shape[0],
+                    capacity=state.gaussians.capacity,
+                    live=int(state.gaussians.active.sum()),
+                    depth=float(inputs[3].mean()))
+        return real_step(state, inputs, bg, kw)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(program, "train_step", step)
+    try:
+        res = run.run("depth_orbit.train_orbit", 9, 0.3, False,
+                      device="cpu", root=root)
+    finally:
+        mp.undo()
+    assert res["correct"], res["checks"]
+    assert seen["kw"]["train_test_exp"] and seen["kw"]["use_depth"]
+    assert not seen["kw"]["antialiasing"]
+    assert not seen["kw"]["use_sparse_adam"]
+    assert seen["n_exposures"] == 32
+    assert (seen["capacity"], seen["live"]) == (2000, 1500)
+    assert seen["depth"] == pytest.approx(0.25)
+    for p, data in before.items():
+        assert p.read_bytes() == data, f"{p} was edited"
+
+
+def test_default_reference_refuses_options(tmp_path):
+    """The default reference refuses a configuration that turns on an
+    option it does not implement, at set-up; the configuration's key
+    ``sparse_adam`` reads as that option."""
+    root = tiny.make_root(tmp_path)
+    path = root / "splatbench/configs/m360_3m.json"
+    cfg = json.loads(path.read_text())
+    assert spec.options(cfg) == dict.fromkeys(spec.OPTIONS, False)
+    for given in ({"options": {"antialiasing": True}}, {"sparse_adam": True},
+                  {"options": {"use_depth": True}}):
+        path.write_text(json.dumps(dict(cfg, **given)))
+        with pytest.raises(ValueError, match="does not implement"):
+            run.run("m360_3m.train_orbit", 3, 0.1, False, device="cpu",
+                    root=root)
+
+
+def test_step_kw_of_m360_3m_is_unchanged():
+    """The configuration without options drives the step with exactly the
+    arguments the harness passed before configurations could set them."""
+    from gsplat_tpu_torch.config import OptimizationConfig
+
+    cfg = spec.cell("m360_3m.train_orbit").config
+    rcfg = program.rasterizer(2.0, pad_cap=640)
+    kw = program.step_kw(1297, 840, rcfg, 3.52, spec.options(cfg),
+                         cfg["optimization"])
+    assert kw == dict(image_width=1297, image_height=840,
+                      opt=OptimizationConfig(), rcfg=rcfg,
+                      spatial_lr_scale=3.52, antialiasing=False,
+                      use_sparse_adam=False, train_test_exp=False,
+                      use_depth=False)
