@@ -2,7 +2,8 @@
 many seeds in one process (one a card): the system's numbers against the
 reference (the lower readings), the lower-precision control's (the
 reference with its products in TF32, in the system's place: the upper
-readings), and, with ``--fault``, a planted fault's numbers.
+readings), and, with ``--fault``, a planted fault's numbers (a fault of
+``splatbench/faults.py`` or of ``splatbench/plants/``).
 
     python -m splatbench.calibrate --workload <cell> --seeds 1,2,3 \\
         [--control] [--fault <name>] [--out <file.jsonl>]
@@ -46,30 +47,32 @@ def calib_rank(rank: int, world: int, args: dict, queue=None):
                 g, views, rcfg, sample = R.setup_render()
                 got = {}
                 for i in sample:
-                    o = prog.frame(g, views[i], R.W, R.H, R.bg, rcfg)
+                    o = prog.frame(g, views[i], R.W, R.H, R.bg, rcfg,
+                                   R.options["antialiasing"])
                     got[i] = (o.image, o.invdepth, o.radii)
                 del g, views
                 drive.free(dev)
-                p0, view = R.reference_inputs()
-                ref = R.reference_frames(p0, view, sample)
+                p0, record = R.reference_inputs()
+                ref = R.reference_frames(p0, record, sample)
                 row["program"] = check.frame_numbers(got, ref)
                 if args["control"]:
                     row["control"] = check.frame_numbers(
-                        R.reference_frames(p0, view, sample, tf32=True), ref)
+                        R.reference_frames(p0, record, sample, tf32=True),
+                        ref)
             else:
                 state = R.setup_train()[0]
                 post = R.program.rows(state) if R.events else None
                 del state
                 drive.free(dev)
-                p0, view = R.reference_inputs()
-                row["program"], ref = R.train_numbers(p0, view, post)
+                p0, record = R.reference_inputs()
+                row["program"], ref = R.train_numbers(p0, record, post)
                 del post
                 row["program_raw"] = {k: R.program_readings[k] for k in
                                       ("loss", "grad_norm", "change_norm")}
                 row["reference_raw"] = steps_readings(ref)
                 row["pairs"] = [f.pairs for f in ref.frames]
                 if args["control"]:
-                    row["control"] = R.control_numbers(p0, view, ref)
+                    row["control"] = R.control_numbers(p0, record, ref)
             row["notes"] = R.r.notes
             row["seconds"] = time.perf_counter() - t0
             del R

@@ -30,6 +30,10 @@ to spare, or it is sized again on that state and the check steps are made
 again through the new call. The window's events are timed, not counted:
 after the close, its first pass is made again from the set-up state, and
 that pass's event is counted.
+The reference takes each check view as one record
+(``reference.raster.ViewRecord``: the view, the pose, the ground truth,
+the alpha mask, the inverse depth and its mask, as the program's upload
+fed them), and the configuration's step options.
 Every training step uploads its view's images from pageable host memory
 (the loop's upload, timed as a span) and reads the loss and the overflow
 on the host, as the training loop does. The state goes back to the
@@ -50,6 +54,7 @@ import numpy as np
 import torch
 
 from splatbench import check, counts, scene, spec, trace
+from splatbench.reference.raster import ViewRecord
 
 BANNED = ("jax", "jaxlib", "flax", "gsplat_tpu")
 
@@ -153,11 +158,14 @@ class Run:
         self.extent = scene.extent(self.cfg, self.n_poses, root)
         self.bg = torch.tensor(self.cfg["background"], dtype=torch.float32,
                                device=self.dev)
-        depth = scene.depths(self.cfg, self.poses, self.seed, root)
+        self.depth = scene.depths(self.cfg, self.poses, self.seed, root)
+        self.masks = scene.masks(self.cfg, self.poses, self.seed, root)
         self.cams = [program.camera(
             i, self.poses[i], self.fov, self.gt[i],
-            None if depth is None else (depth[0][i], depth[1][i]),
-            exposure=self.options["train_test_exp"])
+            None if self.depth is None
+            else (self.depth[0][i], self.depth[1][i]),
+            exposure=self.options["train_test_exp"],
+            alpha=None if self.masks is None else self.masks[i])
             for i in range(self.n_poses)]
         return p
 
@@ -165,7 +173,8 @@ class Run:
         views = [self.program.view(c, self.dev) for c in self.cams]
         rcfg, pairs = self.program.right_size(
             g, views, self.W, self.H, self.bg,
-            first_ppg or self.cfg["first_pairs_per_gaussian"])
+            first_ppg or self.cfg["first_pairs_per_gaussian"],
+            self.options["antialiasing"])
         self.r.notes.append(f"right-sized: largest pairs {pairs}, "
                             f"pairs_per_gaussian {rcfg.pairs_per_gaussian:.4f}"
                             f", pad_cap {rcfg.pad_cap}")
@@ -234,12 +243,16 @@ class Run:
     def check_steps(self, p, step, kw):
         """The first steps from the seed's state, on distinct poses,
         through the window's call and events. Returns (state, readings,
-        the densify event that ends them or None)."""
+        the densify event that ends them or None). The readings hold the
+        leaves' first gradients and changes, and the exposures' too where
+        each image has its own."""
         prog, mix = self.program, self.mix
+        exposure = self.options["train_test_exp"]
         sched = Schedule(mix, self.seed, self.world, self.rank)
         state = prog.init_state(
             p, self.sh, self.cfg["first_step"], self.capacity,
-            self.n_poses if self.options["train_test_exp"] else 1)
+            self.n_poses if exposure else 1)
+        exp0 = prog.exposures(state).clone() if exposure else None
         losses, poses, bad, grad_norm, last = [], [], 0, None, None
         for s in range(mix["check_steps"]):
             i, _ = sched.next_batch()
@@ -248,7 +261,7 @@ class Run:
             losses.append(float(aux.loss))
             bad += int(aux.overflow) > 0 or not math.isfinite(losses[-1])
             if s == 0:
-                grad_norm = prog.adam_first_grad_norms(state)
+                grad_norm = prog.adam_first_grad_norms(state, exposure)
             if self.events:
                 state, info = self.event(state, kw)
                 if info is not None:
@@ -259,10 +272,14 @@ class Run:
                     bad += info["overflow"] > 0
         if self.events and last is None:
             bad += 1        # the steps did not reach the event's iteration
-        before = prog.params(last["pre"] if last else state)
+        end = last["pre"] if last else state
+        before = prog.params(end)
         n = p["xyz"].shape[0]
         change = {k: float(torch.linalg.norm(before[k][:n] - p[k]))
                   for k in prog.LEAVES}
+        if exposure:
+            change["exposure"] = float(torch.linalg.norm(
+                prog.exposures(end) - exp0))
         return state, dict(loss=losses, grad_norm=grad_norm,
                            change_norm=change, bad=bad, poses=poses), last
 
@@ -272,7 +289,8 @@ class Run:
         pairs = pad = 0
         for c in self.cams:
             out = self.program.frame(g, self.program.view(c, self.dev),
-                                     self.W, self.H, self.bg, rcfg)
+                                     self.W, self.H, self.bg, rcfg,
+                                     self.options["antialiasing"])
             if int(out.overflow):
                 return False
             pairs = max(pairs, int(out.num_pairs))
@@ -442,27 +460,37 @@ class Run:
                    self.r.peak_window, getattr(self, "setup_peak", 0))
 
     def reference_inputs(self):
-        """The parameters again from the seed, and a pose's reference view
-        and ground truth on the device."""
+        """The parameters again from the seed, and a pose's record
+        (``raster.ViewRecord``) on the device: its reference view, and the
+        ground truth, alpha mask, inverse depth and depth mask the
+        program's upload fed it (all-ones alpha where the scene gives no
+        mask; no depth where it gives none)."""
         p = scene.make(self.cfg, self.seed, self.dev, 1, self.cell.root)[0]
 
-        def view(i):
-            R, T = self.poses[i]
-            return (scene.view(R, T, *self.fov, self.dev),
-                    torch.tensor(self.gt[i], device=self.dev))
-        return p, view
+        def host(a):
+            return torch.tensor(a, dtype=torch.float32, device=self.dev)
 
-    def reference_train(self, p0, view, tf32: bool = False):
+        def record(i):
+            R, T = self.poses[i]
+            mask = (np.ones((1, self.H, self.W), np.float32)
+                    if self.masks is None else self.masks[i])
+            inv, dmask = ((None, None) if self.depth is None else
+                          (host(self.depth[0][i]), host(self.depth[1][i])))
+            return ViewRecord(scene.view(R, T, *self.fov, self.dev),
+                              host(self.gt[i]), i, host(mask), inv, dmask)
+        return p, record
+
+    def reference_train(self, p0, record, tf32: bool = False):
         """The reference's readings of the check steps (its control with
         ``tf32``)."""
         kw = dict(stats=True) if self.events else {}
         return self.ref.train_steps(
-            p0, [[view(i)] for i in self.check_poses], W=self.W, H=self.H,
+            p0, [[record(i)] for i in self.check_poses], W=self.W, H=self.H,
             bg=self.bg, sh_degree=self.sh, extent=self.extent,
             opt=self.cfg["optimization"], first_step=self.cfg["first_step"],
             prod=self.ref.Products(tf32),
             reduce=self.all_reduce or (lambda ts: ts), batch=self.world,
-            **kw)
+            options=self.options, **kw)
 
     def reference_event(self, rows: dict, tf32: bool = False):
         """The reference's densify event on ``rows`` with the run's split
@@ -491,11 +519,11 @@ class Run:
             rows[k] = check.pad(v, cap)
         return rows
 
-    def train_numbers(self, p0, view, post=None):
+    def train_numbers(self, p0, record, post=None):
         """The check's numbers of the program's readings against the
         reference's, and the reference's readings. ``post``: the
         program's rows after the check steps' densify event."""
-        got = self.reference_train(p0, view)
+        got = self.reference_train(p0, record)
         nums = check.train_numbers(self.program_readings, got)
         if self.events and self.event_pre is None:
             nums.update(count_rows_gap=math.inf, radii_gap=math.inf,
@@ -511,12 +539,12 @@ class Run:
             nums.update(check.densify_numbers(post, ref_rows))
         return nums, got
 
-    def control_numbers(self, p0, view, ref) -> dict:
+    def control_numbers(self, p0, record, ref) -> dict:
         """The control's numbers: the reference with its products in TF32
         in the program's place, against the reference ``ref``; with events,
         its own state's event in TF32 against the reference's event on
         that state."""
-        ctrl = self.reference_train(p0, view, tf32=True)
+        ctrl = self.reference_train(p0, record, tf32=True)
         nums = check.train_numbers(dict(loss=ctrl.loss,
                                         grad_norm=ctrl.grad_norm,
                                         change_norm=ctrl.change_norm), ref)
@@ -530,8 +558,8 @@ class Run:
 
     def check_train(self, post=None):
         t = time.perf_counter()
-        p0, view = self.reference_inputs()
-        nums, got = self.train_numbers(p0, view, post)
+        p0, record = self.reference_inputs()
+        nums, got = self.train_numbers(p0, record, post)
         self.r.notes.append(f"reference: {time.perf_counter() - t:.2f} s, "
                             f"pairs {[f.pairs for f in got.frames]}, "
                             f"contributing "
@@ -542,17 +570,18 @@ class Run:
                      and all(c["value"] <= c["limit"]
                              for c in self.r.checks.values()))
         if self.traced:
-            self.r.views = self.count_views(p0, view, self.traced_views)
+            self.r.views = self.count_views(p0, record, self.traced_views)
 
-    def count_views(self, p0, view, poses):
+    def count_views(self, p0, record, poses):
         """What each traced view needs, from the reference's walk of it at
         the set-up parameters."""
         n_tiles = (-(-self.W // 32)) * (-(-self.H // 32))
         seen = {}
         with torch.no_grad():
             for i in set(poses):
-                f = self.ref.render(p0, view(i)[0], self.W, self.H, self.bg,
-                                    self.sh, self.ref.Products(False))
+                f = self.ref.render(p0, record(i).view, self.W, self.H,
+                                    self.bg, self.sh, self.ref.Products(False),
+                                    options=self.options)
                 seen[i] = counts.FrameCount(f.pairs, f.bwd_rows,
                                             f.contributing, n_tiles,
                                             self.W * self.H)
@@ -571,20 +600,22 @@ class Run:
             replace=False))
         return g, views, rcfg, sample
 
-    def reference_frames(self, p0, view, poses, tf32: bool = False):
+    def reference_frames(self, p0, record, poses, tf32: bool = False):
         """{pose: (image, inverse depth, radii)} of the reference (its
         control with ``tf32``)."""
         out = {}
         with torch.no_grad():
             for i in poses:
-                f = self.ref.render(p0, view(i)[0], self.W, self.H, self.bg,
-                                    self.sh, self.ref.Products(tf32))
+                f = self.ref.render(p0, record(i).view, self.W, self.H,
+                                    self.bg, self.sh, self.ref.Products(tf32),
+                                    options=self.options)
                 out[i] = (f.image, f.invdepth, f.radius)
         return out
 
     def run_render(self):
         prog, mix = self.program_module(), self.mix
         g, views, rcfg, sample = self.setup_render()
+        aa = self.options["antialiasing"]
         kept = {}
         ovf_dev = torch.zeros((), dtype=torch.long, device=self.dev)
         bad_dev = torch.zeros((), dtype=torch.long, device=self.dev)
@@ -595,7 +626,8 @@ class Run:
             i = k % self.n_poses
             t = time.perf_counter()
             with torch.profiler.record_function("splatbench.frame"):
-                out = prog.frame(g, views[i], self.W, self.H, self.bg, rcfg)
+                out = prog.frame(g, views[i], self.W, self.H, self.bg, rcfg,
+                                 aa)
                 sync(self.dev)
             self.r.frame_ms.append((time.perf_counter() - t) * 1e3)
             ovf_dev = torch.maximum(ovf_dev, out.overflow)
@@ -618,14 +650,15 @@ class Run:
         # call, after the close
         for i in sample:
             if i not in kept:
-                out = prog.frame(g, views[i], self.W, self.H, self.bg, rcfg)
+                out = prog.frame(g, views[i], self.W, self.H, self.bg, rcfg,
+                                 aa)
                 kept[i] = (out.image, out.invdepth, out.radii)
         got = {i: kept[i] for i in sample}
         del g, views, kept
         free(self.dev)
         t = time.perf_counter()
-        p0, view = self.reference_inputs()
-        ref = self.reference_frames(p0, view, sample)
+        p0, record = self.reference_inputs()
+        ref = self.reference_frames(p0, record, sample)
         self.r.notes.append(f"reference: {time.perf_counter() - t:.2f} s")
         self.reference_readings = ref
         nums = check.frame_numbers(got, ref)
@@ -633,7 +666,7 @@ class Run:
         self.r.ok = all(c["value"] <= c["limit"]
                         for c in self.r.checks.values())
         if self.traced:
-            self.r.views = self.count_views(p0, view, traced)
+            self.r.views = self.count_views(p0, record, traced)
 
     def program_module(self):
         from splatbench import program

@@ -1,9 +1,13 @@
 """Faults planted in the system under test, to show that the check fails
 them (``splatbench/tests``) and to read the numbers they give on the card
 when the limits are set (``splatbench.calibrate``). A benchmark run never
-plants one. Each ``plant_<name>()`` patches the system in this process.
+plants one. Each ``plant_<name>()`` patches the system in this process; a
+fault that a configuration brings is a module of its own,
+``splatbench/plants/<name>.py``, with a ``plant()``.
 """
 from __future__ import annotations
+
+from pathlib import Path
 
 import torch
 
@@ -119,5 +123,12 @@ def plant_stats_shifted():
     densify.add_densification_stats = add_densification_stats
 
 
-def plant(name: str):
-    globals()[f"plant_{name}"]()
+def plant(name: str, root: Path = None):
+    """Plants the fault ``name``: ``plant_<name>`` here, else the module
+    ``splatbench/plants/<name>.py`` of the checkout at ``root``."""
+    fn = globals().get(f"plant_{name}")
+    if fn is None:
+        from splatbench import spec
+        fn = spec.module("plants", name,
+                         spec.ROOT if root is None else root).plant
+    fn()

@@ -47,17 +47,20 @@ def init_state(p: dict, sh_degree: int, first_step: int, capacity: int = 0,
 
 
 def camera(i: int, pose, fov, image: np.ndarray, depth=None,
-           exposure: bool = False) -> Camera:
+           exposure: bool = False, alpha=None) -> Camera:
     """A scene camera as the system's loader makes one: the host image
-    (3,H,W) in [0,1], an all-ones alpha mask; ``depth`` (inverse depth,
-    mask), each (1,H,W), where the scene gives one, else none; with
-    ``exposure`` its own exposure, number ``i``."""
+    (3,H,W) in [0,1]; ``alpha`` its alpha mask (1,H,W) where the scene
+    gives one, else all ones; ``depth`` (inverse depth, mask), each
+    (1,H,W), where the scene gives one, else none; with ``exposure`` its
+    own exposure, number ``i``."""
     (R, T), (fovx, fovy) = pose, fov
     H, W = image.shape[1:]
     inv, mask = depth if depth is not None else (None, None)
     extra = dict(exposure_idx=i) if exposure else {}
+    if alpha is None:
+        alpha = np.ones((1, H, W), np.float32)
     return Camera(uid=i, colmap_id=i, R=R, T=T, FoVx=fovx, FoVy=fovy,
-                  image=image, alpha_mask=np.ones((1, H, W), np.float32),
+                  image=image, alpha_mask=alpha,
                   invdepthmap=inv, depth_mask=mask,
                   depth_reliable=depth is not None,
                   image_name=f"{i:05d}", width=W, height=H, **extra)
@@ -79,20 +82,22 @@ def rasterizer(pairs_per_gaussian: float, chunk: int = 64, pad_cap: int = -1
                             chunk=chunk, pad_cap=pad_cap)
 
 
-def frame(g, cam_view, W, H, bg, rcfg):
-    """One viewer frame: ``render`` without gradients."""
+def frame(g, cam_view, W, H, bg, rcfg, antialiasing: bool = False):
+    """One viewer frame: ``render`` without gradients, with the EWA filter
+    where ``antialiasing`` is on."""
     with torch.no_grad():
-        return render(g, cam_view, W, H, bg, rcfg)
+        return render(g, cam_view, W, H, bg, rcfg, antialiasing=antialiasing)
 
 
-def right_size(g, views, W, H, bg, first_ppg: float):
+def right_size(g, views, W, H, bg, first_ppg: float,
+               antialiasing: bool = False):
     """bench.py's arithmetic over every view: the frames at ``first_ppg``
     pairs a gaussian, doubled until none overflows, then 1.3x the largest
     pair count (at least 2 a gaussian) and 1.5x the largest alignment
     padding (at least one chunk). Returns (config, largest pairs)."""
     rcfg = rasterizer(first_ppg)
     while True:
-        outs = [frame(g, v, W, H, bg, rcfg) for v in views]
+        outs = [frame(g, v, W, H, bg, rcfg, antialiasing) for v in views]
         if not any(int(o.overflow) for o in outs):
             break
         rcfg = rasterizer(2 * rcfg.pairs_per_gaussian)
@@ -160,15 +165,25 @@ def dp_step(kw):
     return run
 
 
-def adam_first_grad_norms(state) -> dict:
+def adam_first_grad_norms(state, exposure: bool = False) -> dict:
     """The norm of each leaf's first gradient, as Adam took it: its first
-    moment after one step is (1 - b1) x the gradient."""
-    return {k: float(torch.linalg.norm(state.adam.mu[k] / 0.1))
-            for k in LEAVES}
+    moment after one step is (1 - b1) x the gradient; with ``exposure``
+    also that of the exposures, as the exposure Adam took it."""
+    out = {k: float(torch.linalg.norm(state.adam.mu[k] / 0.1))
+           for k in LEAVES}
+    if exposure:
+        out["exposure"] = float(torch.linalg.norm(
+            state.exp_adam.mu["exposure"] / 0.1))
+    return out
 
 
 def params(state) -> dict:
     return gm.trainables(state.gaussians)
+
+
+def exposures(state) -> torch.Tensor:
+    """Every image's exposure affine, (n_images, 3, 4)."""
+    return state.exposure
 
 
 def iteration(state) -> int:

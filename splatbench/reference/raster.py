@@ -15,6 +15,13 @@ a splat reaches the tiles of its rectangle cut to the axis-aligned box of
 its alpha >= 1/255 ellipse (level 2·ln(opacity·255) + 1e-3), and a
 splat's SH colour is max(c + 0.5, 0).
 
+Two step options of the 3DGS code are here too, off by default: the EWA
+filter of its ``dr_aa`` rasterizer (``antialiasing``: the opacity scaled by
+sqrt(max(2.5e-5, det(Σ₂) / det(Σ₂ + 0.3·I))), which the binning box then
+sees), and a per-image exposure, the 3 x 4 affine applied to the raw image
+before the clamp. A loss may read the frame's inverse depth and give its
+gradient, which enters the compositing walk's fourth column.
+
 Every product of a matrix or a batch of small matrices goes through
 ``Products.mm``, which in the lower-precision control rounds both operands
 to TF32 (10 mantissa bits) first, as the tensor cores do with TF32 on.
@@ -26,7 +33,7 @@ under test.
 from __future__ import annotations
 
 import contextlib
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -36,6 +43,7 @@ T_EPS = 1e-4
 DILATION = 0.3
 Z_NEAR_CULL = 0.2
 
+AA_MIN_RATIO = 2.5e-5
 SH_C0 = 0.28209479177387814
 SH_C1 = 0.4886025119029199
 SH_C2 = (1.0925484305920792, -1.0925484305920792, 0.31539156525252005,
@@ -95,6 +103,21 @@ class View(NamedTuple):
     tanfovy: float
 
 
+class ViewRecord(NamedTuple):
+    """One check view as the reference takes it, on the device, holding
+    the values the system's step was fed: the view, the pose's index, the
+    ground truth (3, H, W), the alpha mask (1, H, W) in [0, 1], the inverse
+    depth and its mask (1, H, W), each None where the scene gives none. A
+    (view, ground truth) pair reads as a record with no alpha mask (all
+    ones) and no depth: ``ViewRecord(*pair)``."""
+    view: View
+    gt: torch.Tensor
+    pose: int = -1
+    alpha_mask: Optional[torch.Tensor] = None
+    invdepth: Optional[torch.Tensor] = None
+    depth_mask: Optional[torch.Tensor] = None
+
+
 class Projected(NamedTuple):
     mean2d: torch.Tensor    # (N, 2) pixels, centres at integers
     depth: torch.Tensor     # (N,)
@@ -138,10 +161,12 @@ def sh_basis(deg, d):
 
 
 def project(p: dict, view: View, W: int, H: int, sh_degree: int,
-            prod: Products) -> Projected:
+            prod: Products, antialiasing: bool = False) -> Projected:
     """Screen-space splats of the parameters ``p`` (pre-activation:
     ``xyz``, ``f_dc`` (N,3), ``f_rest`` (N,K-1,3), log ``scaling``,
-    unnormalised quaternion ``rotation`` wxyz, logit ``opacity`` (N,))."""
+    unnormalised quaternion ``rotation`` wxyz, logit ``opacity`` (N,));
+    with ``antialiasing`` the opacity carries the EWA filter's
+    compensation."""
     xyz = p["xyz"]
     n = xyz.shape[0]
     xh = torch.cat([xyz, torch.ones((n, 1), dtype=xyz.dtype,
@@ -179,6 +204,11 @@ def project(p: dict, view: View, W: int, H: int, sh_degree: int,
     radius = torch.ceil(3.0 * torch.sqrt(torch.clamp(lam, min=0.0)))
 
     opacity = torch.sigmoid(p["opacity"])
+    if antialiasing:
+        # the determinant's share that survives the dilation
+        det0 = cov[:, 0, 0] * cov[:, 1, 1] - c01 * c01
+        ratio = det0 / torch.where(det == 0, torch.ones_like(det), det)
+        opacity = opacity * torch.sqrt(torch.clamp(ratio, min=AA_MIN_RATIO))
     level = torch.clamp(2.0 * torch.log(torch.clamp(opacity, min=1e-12)
                                         / ALPHA_MIN) + 1e-3, min=0.0)
     rx = torch.minimum(torch.ceil(torch.sqrt(level * c00.clamp(min=0.0))),
@@ -389,35 +419,57 @@ class Frame(NamedTuple):
     bwd_rows: int            # pairs up to each tile's last contributor
 
 
+def expose(raw: torch.Tensor, exposure: torch.Tensor, prod: Products):
+    """The exposure affine (3, 4) on a raw (3, H, W) image: colour k is
+    sum_c raw_c E[c, k] + E[k, 3], as the 3DGS renderer applies it."""
+    return (prod.mm(raw.permute(1, 2, 0), exposure[:3, :3]).permute(2, 0, 1)
+            + exposure[:3, 3, None, None])
+
+
 @full_f32()
 def render(p: dict, view: View, W: int, H: int, bg: torch.Tensor,
            sh_degree: int, prod: Products, *, with_grad: bool = False,
-           d_image_fn=None, mean2d_grad: bool = False):
-    """One frame. Without ``with_grad``: a ``Frame``. With it,
-    ``d_image_fn(image) -> (value, d image)`` gives the loss and its
-    gradient at the clamped image, and the result is (Frame, value, the
-    gradients of ``p``'s leaves by key); with ``mean2d_grad`` also that of
-    the splats' screen-space means in pixels, (N, 2), under ``"mean2d"``."""
+           d_image_fn=None, mean2d_grad: bool = False,
+           exposure: Optional[torch.Tensor] = None,
+           antialiasing: bool = False):
+    """One frame; with ``exposure`` (3, 4) its affine applied to the raw
+    image before the clamp, with ``antialiasing`` the EWA filter. Without
+    ``with_grad``: a ``Frame``. With it, ``d_image_fn(image, invdepth) ->
+    (value, d image, d invdepth or None)`` gives the loss and its gradients
+    at the clamped image and at the inverse depth, and the result is
+    (Frame, value, the gradients of ``p``'s leaves by key); with
+    ``exposure`` also its gradient under ``"exposure"``; with
+    ``mean2d_grad`` also that of the splats' screen-space means in pixels,
+    (N, 2), under ``"mean2d"``."""
     with torch.set_grad_enabled(with_grad):
-        pr = project(p, view, W, H, sh_degree, prod)
+        pr = project(p, view, W, H, sh_degree, prod, antialiasing)
         rows = pack(pr)
     bins = bin_splats(pr, W, H)
     walk = Walk(rows.detach()[bins.splat], bins, prod)
     accum, t_final, nc, hits, nc_max = walk.forward(keep=with_grad)
     raw = tiles_to_image(accum[:, :3], bins, W, H) + tiles_to_image(
         t_final[:, None], bins, W, H) * bg[:, None, None]
-    image = torch.clamp(raw, 0.0, 1.0)
+    image = torch.clamp(raw if exposure is None
+                        else expose(raw, exposure.detach(), prod), 0.0, 1.0)
     frame = Frame(image, tiles_to_image(accum[:, 3:4], bins, W, H),
                   pr.radius.detach(), t_final, int(bins.splat.shape[0]),
                   hits, int(torch.minimum(bins.tile_count, nc_max).sum()))
     if not with_grad:
         return frame
     raw_leaf = raw.detach().requires_grad_()
-    value, d_img = d_image_fn(torch.clamp(raw_leaf, 0.0, 1.0))
-    (d_raw,) = torch.autograd.grad(torch.clamp(raw_leaf, 0.0, 1.0), raw_leaf,
-                                   d_img)
+    seen = [raw_leaf]
+    shown = raw_leaf
+    if exposure is not None:
+        seen.append(exposure.detach().requires_grad_())
+        shown = expose(raw_leaf, seen[1], prod)
+    value, d_img, d_inv = d_image_fn(torch.clamp(shown, 0.0, 1.0),
+                                     frame.invdepth)
+    d_shown = torch.autograd.grad(torch.clamp(shown, 0.0, 1.0), seen, d_img)
+    d_raw = d_shown[0]
     d_accum = torch.zeros_like(accum)
     d_accum[:, :3] = image_to_tiles(d_raw, bins)
+    if d_inv is not None:
+        d_accum[:, 3:4] = image_to_tiles(d_inv, bins)
     d_t = image_to_tiles((d_raw * bg[:, None, None]).sum(0, keepdim=True),
                          bins)[:, 0]
     d_pairs = walk.backward(d_accum, d_t)
@@ -427,6 +479,8 @@ def render(p: dict, view: View, W: int, H: int, bg: torch.Tensor,
     out = {k: (torch.zeros_like(v) if gr is None else gr)
            for (k, v), gr in zip(((k, v) for k, v in p.items()
                                   if v.requires_grad), grads)}
+    if exposure is not None:
+        out["exposure"] = d_shown[1]
     if mean2d_grad:
         out["mean2d"] = d_rows[:, :2]
     return frame, value, out

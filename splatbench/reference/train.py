@@ -5,15 +5,17 @@ C2 = 0.03², variances clamped at 0), and Adam as the 3DGS code steps it:
 per-group rates, the position rate on its exponential schedule scaled by
 the scene extent, b1 0.9, b2 0.999, eps 1e-15, bias corrections in float32.
 
-A batch of views sums each view's loss and gradients through ``reduce``
-(the identity on one process; an all-reduce over ranks for camera data
-parallelism) and divides by the batch. Nothing here imports the system
-under test.
+Each view is a ``raster.ViewRecord``; the image is multiplied by its alpha
+mask before the loss, as the 3DGS code and the system do (an all-ones mask
+changes nothing). A batch of views sums each view's loss and gradients
+through ``reduce`` (the identity on one process; an all-reduce over ranks
+for camera data parallelism) and divides by the batch. Nothing here
+imports the system under test.
 
 The default reference of a configuration (``reference`` absent): its
-interface is ``accept``, ``render``, ``Products`` and ``train_steps``. It
-implements none of the step options, and refuses a configuration that
-turns one on.
+interface is ``accept``, ``render``, ``Products`` and ``train_steps``, the
+last two taking the configuration's step options (``spec.options``). It
+implements none of them, and refuses a configuration that turns one on.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from splatbench.reference import raster
-from splatbench.reference.raster import Products, render  # noqa: F401
+from splatbench.reference.raster import Products  # noqa: F401
 
 LAMBDA_DSSIM = 0.2
 B1, B2, EPS = 0.9, 0.999, 1e-15
@@ -40,6 +42,15 @@ def accept(options: dict, implemented=OPTIONS):
     if missing:
         raise ValueError(f"the reference does not implement the step "
                          f"options {missing}")
+
+
+def render(p: dict, view, W: int, H: int, bg, sh_degree: int,
+           prod: raster.Products, *, options: dict = None, **kw):
+    """``raster.render`` under the step options ``options`` (all off where
+    None): the EWA filter where ``antialiasing`` is on."""
+    aa = bool(options and options.get("antialiasing"))
+    return raster.render(p, view, W, H, bg, sh_degree, prod,
+                         antialiasing=aa, **kw)
 
 
 def lr_groups(step: int, extent: float, opt: dict) -> dict:
@@ -74,17 +85,21 @@ def ssim(img, gt, prod: raster.Products):
             / ((mu1 * mu1 + mu2 * mu2 + c1) * (s1 + s2 + c2))).mean()
 
 
-def loss_fn(gt, prod):
-    """``d_image_fn`` for ``raster.render``: (loss, its gradient at the
-    image)."""
-    def fn(image):
+def loss_fn(rec: raster.ViewRecord, prod):
+    """``d_image_fn`` for ``raster.render``: (loss of the image times the
+    record's alpha mask against its ground truth, its gradient at the
+    image, none at the inverse depth)."""
+    gt, mask = rec.gt, rec.alpha_mask
+
+    def fn(image, invdepth):
         image = image.detach().requires_grad_()
         with torch.enable_grad():
-            l1 = (image - gt).abs().mean()
+            shown = image if mask is None else image * mask
+            l1 = (shown - gt).abs().mean()
             loss = (1 - LAMBDA_DSSIM) * l1 + LAMBDA_DSSIM * (
-                1 - ssim(image, gt, prod))
+                1 - ssim(shown, gt, prod))
             (d,) = torch.autograd.grad(loss, image)
-        return loss.detach(), d
+        return loss.detach(), d, None
     return fn
 
 
@@ -148,13 +163,14 @@ def train_steps(p0: dict, batches: Sequence[Sequence[tuple]], *, W: int,
                 H: int, bg, sh_degree: int, extent: float, opt: dict,
                 first_step: int, prod: raster.Products,
                 reduce: Callable = identity, batch: int = 1,
-                stats: bool = False) -> Steps:
+                stats: bool = False, options: dict = None) -> Steps:
     """Train ``len(batches)`` steps from the parameters ``p0`` (left
-    unchanged). ``batches[s]`` holds this process's (view, ground truth)
-    of step s; with ``reduce`` summing over ranks, ``batch`` is the whole
-    batch. Step s is number ``first_step + s + 1``. With ``stats`` (one
-    process) it also gathers the densification statistics of every view
-    and keeps the state after the steps."""
+    unchanged). ``batches[s]`` holds this process's records
+    (``raster.ViewRecord``) of step s; with ``reduce`` summing over ranks,
+    ``batch`` is the whole batch. Step s is number ``first_step + s + 1``.
+    With ``stats`` (one process) it also gathers the densification
+    statistics of every view and keeps the state after the steps.
+    ``options``: the step options, which ``accept`` has let through."""
     out = Steps()
     params = {k: p0[k].detach().clone() for k in LEAVES}
     mu = {k: torch.zeros_like(v) for k, v in params.items()}
@@ -168,10 +184,12 @@ def train_steps(p0: dict, batches: Sequence[Sequence[tuple]], *, W: int,
         leaf = {k: v.requires_grad_() for k, v in params.items()}
         loss = torch.zeros((), device=bg.device)
         grads = {k: torch.zeros_like(v) for k, v in params.items()}
-        for view, gt in views:
-            frame, value, g = raster.render(
-                leaf, view, W, H, bg, sh_degree, prod, with_grad=True,
-                d_image_fn=loss_fn(gt, prod), mean2d_grad=stats)
+        for rec in views:
+            rec = raster.ViewRecord(*rec)
+            frame, value, g = render(
+                leaf, rec.view, W, H, bg, sh_degree, prod, options=options,
+                with_grad=True, d_image_fn=loss_fn(rec, prod),
+                mean2d_grad=stats)
             if stats:
                 out.stats = add_stats(out.stats, frame.radius, g["mean2d"],
                                       W, H)

@@ -57,8 +57,8 @@ def _unpack(flat, like):
 def init_rank(rank: int, world: int, args: dict):
     """This rank's device and, over several ranks, the process group:
     (device, all_reduce, broadcast_int), the last two None on one rank.
-    ``args['fault']`` names a fault of ``splatbench.faults`` to plant (the
-    tests' and the calibration's, never a benchmark run's)."""
+    ``args['fault']`` names a fault to plant (``splatbench.faults.plant``:
+    the tests' and the calibration's, never a benchmark run's)."""
     import torch
     import torch.distributed as dist
 
@@ -93,7 +93,7 @@ def init_rank(rank: int, world: int, args: dict):
             return int(t)
     if args.get("fault"):
         from splatbench import faults
-        faults.plant(args["fault"])
+        faults.plant(args["fault"], Path(args["root"]))
     return dev, all_reduce, broadcast_int
 
 

@@ -1,8 +1,8 @@
 """The benchmark's inputs, made from ``--seed``: the splats' parameters on
 the device (a ``torch.Generator`` on the device, a few large calls), the
 cameras, the ground-truth images and, where the scene kind makes them, the
-inverse-depth maps on the host. The system under test and the reference
-take the same inputs; neither makes any of them.
+inverse-depth maps and the alpha masks on the host. The system under test
+and the reference take the same inputs; neither makes any of them.
 
 The splats come from the module of ``splatbench/scenes/`` that the
 configuration's ``scene.kind`` names (the ground truth too, where that
@@ -111,3 +111,10 @@ def depths(cfg: dict, poses_: list, seed: int, root=None):
     the configuration's scene kind makes them; else None."""
     mod = _module("scenes", cfg["scene"]["kind"], root)
     return mod.depths(cfg, poses_, seed) if hasattr(mod, "depths") else None
+
+
+def masks(cfg: dict, poses_: list, seed: int, root=None):
+    """Each pose's alpha mask, a (n, 1, H, W) host array in [0, 1], where
+    the configuration's scene kind makes them; else None (all ones)."""
+    mod = _module("scenes", cfg["scene"]["kind"], root)
+    return mod.masks(cfg, poses_, seed) if hasattr(mod, "masks") else None

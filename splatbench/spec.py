@@ -16,7 +16,10 @@ to one of them sits in a file of its own that is found by its name:
   scene and the camera path a configuration's ``scene.kind`` and
   ``camera.kind`` name;
 - ``splatbench/reference/<name>.py``: the plain reference a configuration's
-  ``reference`` names (``train`` where it names none).
+  ``reference`` names (``train`` where it names none);
+- ``splatbench/plants/<name>.py``: a fault planted in the system under
+  test by name (``splatbench.faults.plant``), where ``faults.py`` has
+  none of that name.
 
 A configuration's optional ``options`` block holds the step options
 (``OPTIONS``), each off where it is not given.

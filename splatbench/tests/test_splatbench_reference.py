@@ -8,7 +8,7 @@ from __future__ import annotations
 import pytest
 import torch
 
-from splatbench import calibrate, counts, run, scene, spec
+from splatbench import calibrate, check, counts, program, run, scene, spec
 from splatbench.reference import raster
 from splatbench.tests import tiny
 
@@ -32,6 +32,34 @@ def test_system_passes_control_fails(root, cell):
         assert all(v <= limits[k] for k, v in judged.items()), row
         assert any(v > limits[k] for k, v in row["control"].items()
                    if k in limits), row
+
+
+def test_antialiased_frame_matches_the_port(root):
+    """The reference's frames with the EWA filter against the port's plain
+    path with ``antialiasing`` on, under render_orbit's limit; the
+    reference's frames without the filter lie outside it."""
+    cell = spec.cell("m360_3m.render_orbit", root)
+    cfg, dev = cell.config, torch.device("cpu")
+    W, H, sh = cfg["width"], cfg["height"], cfg["sh_degree"]
+    p, poses, gt = scene.make(cfg, 2 ** 31 + 41, dev, 4, root)
+    fov = scene.fov(cfg)
+    bg = torch.tensor(cfg["background"], dtype=torch.float32)
+    g = program.gaussians(p, sh, cfg["capacity"])
+    views = [program.view(program.camera(i, poses[i], fov, gt[i]), dev)
+             for i in range(len(poses))]
+    rcfg, _ = program.right_size(g, views, W, H, bg,
+                                 cfg["first_pairs_per_gaussian"], True)
+    got, ref, plain = {}, {}, {}
+    for i, v in enumerate(views):
+        o = program.frame(g, v, W, H, bg, rcfg, True)
+        got[i] = (o.image, o.invdepth, o.radii)
+        for out, aa in ((ref, True), (plain, False)):
+            f = raster.render(p, scene.view(*poses[i], *fov, dev), W, H, bg,
+                              sh, raster.Products(), antialiasing=aa)
+            out[i] = (f.image, f.invdepth, f.radius)
+    limit = cell.limits["frame_mean_gap"]
+    assert check.frame_numbers(got, ref)["frame_mean_gap"] <= limit
+    assert check.frame_numbers(got, plain)["frame_mean_gap"] > limit
 
 
 class _Spy(raster.Products):

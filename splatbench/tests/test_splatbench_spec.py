@@ -1,8 +1,9 @@
 """BENCHMARK.json against the contract's shape, every cell and metric
 resolving to its files; a cell, a traffic mix, a per-layer metric, a scene
-kind, a camera path, step options and a reference added as files alone;
-the default reference refusing options; the step arguments of a
-configuration without options."""
+kind, a camera path, step options, a reference and a fault added as files
+alone, the check of the options it turns on holding each term; the check
+views' records; the default reference refusing options; the step
+arguments of a configuration without options."""
 from __future__ import annotations
 
 import json
@@ -10,8 +11,10 @@ import re
 
 import pytest
 
-from splatbench import program, run, spec
-from splatbench.tests import tiny
+import torch
+
+from splatbench import drive, program, run, spec
+from splatbench.tests import options_cell, tiny
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -63,22 +66,6 @@ def test_metric_shape(metric):
         assert metric["moves"] in ends
 
 
-SCENE_WITH_DEPTH = '''
-"""capture360's splats, and per-pose inverse-depth maps with empty masks."""
-import numpy as np
-
-from splatbench.scenes import capture360
-
-
-def params(cfg, seed, device):
-    return capture360.params(cfg, seed, device)
-
-
-def depths(cfg, poses, seed):
-    shape = (len(poses), 1, cfg["height"], cfg["width"])
-    return (np.full(shape, 0.25, np.float32), np.zeros(shape, np.float32))
-'''
-
 CAMERA_PATH = '''
 """An orbit twice as high, looking at the same point."""
 from splatbench.cameras import orbit
@@ -89,27 +76,16 @@ def poses(cfg, count):
     return orbit.poses(dict(cfg, camera=cam), count)
 '''
 
-REFERENCE = '''
-"""The default reference, which also follows the per-image exposures and
-the depth loss where, as in this configuration, they change nothing: each
-check step trains its own pose, whose exposure is still the identity, and
-the depth masks are empty."""
-from splatbench.reference import train
-from splatbench.reference.train import Products, render, train_steps  # noqa
-
-OPTIONS = frozenset({"train_test_exp", "use_depth"})
-
-
-def accept(options):
-    train.accept(options, OPTIONS)
-'''
+OPTIONS_ON = {"train_test_exp": True, "use_depth": True}
 
 
 def test_added_as_files_alone(tmp_path):
     """A configuration, a traffic mix, a per-layer metric and a cell added
     as new files and entries run, with no existing file edited; and a
-    configuration with its own scene kind, camera path, step options and
-    reference module, added as new files, trains and passes its check."""
+    configuration with step options on, its own scene kind (depths under
+    non-empty masks, alpha masks that zero the right half), camera path,
+    reference module and fault, added as new files, trains, passes its
+    check, and fails it with its fault planted."""
     root = tiny.make_root(tmp_path)
     before = {p: p.read_bytes() for p in root.rglob("*") if p.is_file()
               and p.name != "BENCHMARK.json"}
@@ -140,34 +116,17 @@ def test_added_as_files_alone(tmp_path):
         name="frames_traced.render", unit="frames", better="higher",
         source="device_trace", layer="host", moves="frame_ms",
         workloads=["small_orbit.render_short"]))
-
-    # a configuration of its own scene kind, camera path, options and
-    # reference, under the training mix
-    (root / "splatbench/scenes/capture360_depth.py").write_text(
-        SCENE_WITH_DEPTH)
-    (root / "splatbench/cameras/orbit_high.py").write_text(CAMERA_PATH)
-    (root / "splatbench/reference/exposure_depth.py").write_text(REFERENCE)
-    cfg = json.loads((root / "splatbench/configs/m360_3m.json").read_text())
-    cfg.update(name="depth_orbit", gaussians=1500, capacity=2000,
-               reference="exposure_depth",
-               options={"train_test_exp": True, "use_depth": True})
-    cfg["scene"]["kind"] = "capture360_depth"
-    cfg["camera"]["kind"] = "orbit_high"
-    (root / "splatbench/configs/depth_orbit.json").write_text(
-        json.dumps(cfg))
-    (root / "splatbench/limits/depth_orbit.train_orbit.json").write_text(
-        (root / "splatbench/limits/m360_3m.train_orbit.json").read_text())
-    bench["configs"].append(dict(name="depth_orbit", source="a test",
-                                 file="splatbench/configs/depth_orbit.json",
-                                 reduced=[], why="a test"))
-    bench["workloads"].append(dict(name="depth_orbit.train_orbit",
-                                   config="depth_orbit",
-                                   traffic="train_orbit", chips=1,
-                                   why="a test"))
-    for m in bench["end_to_end"]:
-        if m["name"] == "train_pixels_per_s":
-            m["workloads"].append("depth_orbit.train_orbit")
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    # a configuration with options on, of its own scene kind, camera path,
+    # reference and fault, under the training mix
+    cell = options_cell.add(root, "depth_orbit", OPTIONS_ON,
+                            gaussians=1500, capacity=2000)
+    (root / "splatbench/cameras/orbit_high.py").write_text(CAMERA_PATH)
+    path = root / "splatbench/configs/depth_orbit.json"
+    cfg = json.loads(path.read_text())
+    cfg["camera"]["kind"] = "orbit_high"
+    path.write_text(json.dumps(cfg))
     res = run.run("small_orbit.render_short", 7, 0.5, True, device="cpu",
                   root=root)
     assert res["correct"], res["checks"]
@@ -177,16 +136,18 @@ def test_added_as_files_alone(tmp_path):
     real_step = program.train_step
 
     def step(state, inputs, bg, kw):
+        half = inputs[2].shape[-1] // 2
         seen.update(kw=kw, n_exposures=state.exposure.shape[0],
                     capacity=state.gaussians.capacity,
                     live=int(state.gaussians.active.sum()),
-                    depth=float(inputs[3].mean()))
+                    alpha=(float(inputs[2][..., :half].min()),
+                           float(inputs[2][..., half:].max())),
+                    depth_mask=float(inputs[4].mean()))
         return real_step(state, inputs, bg, kw)
     mp = pytest.MonkeyPatch()
     mp.setattr(program, "train_step", step)
     try:
-        res = run.run("depth_orbit.train_orbit", 9, 0.3, False,
-                      device="cpu", root=root)
+        res = run.run(cell, 9, 0.3, False, device="cpu", root=root)
     finally:
         mp.undo()
     assert res["correct"], res["checks"]
@@ -195,9 +156,71 @@ def test_added_as_files_alone(tmp_path):
     assert not seen["kw"]["use_sparse_adam"]
     assert seen["n_exposures"] == 32
     assert (seen["capacity"], seen["live"]) == (2000, 1500)
-    assert seen["depth"] == pytest.approx(0.25)
+    assert seen["alpha"] == (1.0, 0.0)
+    assert 0.4 < seen["depth_mask"] < 0.6
+    res = run.run(cell, 9, 0.3, False, device="cpu", root=root,
+                  fault="exposure_grad_x2")
+    worst = res["checks"]["grad_worst_gap"]
+    assert not res["correct"] and worst["value"] > worst["limit"], worst
     for p, data in before.items():
         assert p.read_bytes() == data, f"{p} was edited"
+
+
+ALL_ON = dict.fromkeys(spec.OPTIONS, True)
+
+
+@pytest.mark.parametrize("options,drop", [
+    (OPTIONS_ON, "depth"), (OPTIONS_ON, "mask"), (ALL_ON, ""),
+    (ALL_ON, "sparse_adam"), (ALL_ON, "antialiasing")])
+def test_options_reference_needs_each_term(tmp_path, options, drop):
+    """The check of a configuration with options on passes against the
+    reference that follows them (all four, through the port's plain path),
+    and fails against the same reference with one term left out: the
+    inverse-depth L1, the alpha mask, sparse Adam's mask or the EWA
+    filter."""
+    root = tiny.make_root(tmp_path)
+    cell = options_cell.add(root, "options_orbit", options,
+                            gaussians=1500, capacity=2000)
+    ref = spec.module("reference", "all_options", root)
+    real_render = ref.render
+    mp = pytest.MonkeyPatch()
+    if drop == "depth":
+        mp.setattr(ref, "depth_weight", lambda step, opt: 0.0)
+    elif drop == "mask":
+        mp.setattr(ref, "masked", lambda image, rec: image)
+    elif drop == "sparse_adam":
+        mp.setattr(ref, "keep_hidden", lambda new, old, vis: new)
+    elif drop == "antialiasing":
+        mp.setattr(ref, "render", lambda *a, options, **k: real_render(
+            *a, options=dict(options, antialiasing=False), **k))
+    try:
+        res = run.run(cell, 2 ** 31 + 53, 0.3, False, device="cpu",
+                      root=root)
+    finally:
+        mp.undo()
+    assert res["correct"] == (drop == ""), res["checks"]
+
+
+def test_record_is_what_the_program_was_fed(tmp_path):
+    """Each check view's record holds, on the device, the ground truth,
+    alpha mask, inverse depth and depth mask that the program's upload fed
+    the step, and the pose's index."""
+    root = tiny.make_root(tmp_path)
+    cell = spec.cell(options_cell.add(root, "depth_orbit", OPTIONS_ON,
+                                      gaussians=1500, capacity=2000), root)
+    r = drive.Run(cell, 2 ** 31 + 29, 0.0, False, torch.device("cpu"))
+    r.program_module()
+    r.inputs()
+    record = r.reference_inputs()[1]
+    for i in range(r.n_poses):
+        fed = program.upload(r.cams[i], r.dev)
+        rec = record(i)
+        assert rec.pose == i
+        for got, want in zip((rec.gt, rec.alpha_mask, rec.invdepth,
+                              rec.depth_mask), fed[1:]):
+            assert got.device == want.device
+            assert torch.equal(got, want)
+    assert float(record(0).depth_mask.sum()) > 0
 
 
 def test_default_reference_refuses_options(tmp_path):

@@ -11,7 +11,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
 DATA = ("configs", "traffic", "e2e", "metrics", "limits", "scenes", "cameras",
-        "reference")
+        "reference", "plants")
 SIZES = {"m360_3m": dict(gaussians=3000, capacity=3000, width=96, height=64),
          "m360_densify": dict(gaussians=1500, capacity=6000, width=96,
                               height=64)}
