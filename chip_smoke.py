@@ -27,7 +27,10 @@ Phases, each printing its own line:
    and the one-launch backward at 3x1920x1080 against the plain SSIM,
    with the pair's time and bound per step; the fused preprocess pair on
    the training scene against the plain path (preprocess_ab.py's gates and
-   timings); each kernel timed by CUDA events;
+   timings); the entry gather's pair against the plain chain on the
+   training frame (the forward bit for bit, the backward bit for bit the
+   chain's on the CPU and the same bits twice, row N 0); each kernel timed
+   by CUDA events;
 3c. the depth-slab and tile-band forms of the kernels against their plain
    versions, on the phase-5 frame's entries split into 4 depth slabs, with
    the rectangle walk of every tile of each slab: the slab transmittance
@@ -189,6 +192,9 @@ from gsplat_tpu_torch.ops.kernels.composite import (composite_bwd_cuda,
                                                     composite_fwd_cuda,
                                                     cull_rects_cuda,
                                                     slab_transmittance_cuda)
+from gsplat_tpu_torch.ops.kernels.gather import (gather_entries_bwd_cuda,
+                                                 gather_entries_fwd_cuda,
+                                                 gather_entries_plain)
 from gsplat_tpu_torch.ops.kernels.preprocess import (preprocess_bwd_cuda,
                                                      preprocess_fwd_cuda)
 from gsplat_tpu_torch.ops.kernels.scan import (blocked_cumsum_16_cuda,
@@ -697,6 +703,102 @@ def check_preprocess(g, cam, rng):
                  bound_ms=m["bound_ms"]["fused_bwd"], bound_by="bytes"))
 
 
+def check_gather(g, cam, cfg, rng):
+    """Phase 3b: the entry gather's pair (csrc/gather_entries_fwd.cu,
+    csrc/gather_entries_bwd.cu) against the plain chain on the training
+    step's frame: the forward bit for bit; the backward under a N(0,1)
+    cotangent bit for bit the chain's two index_add_s on the CPU (both add
+    each row's slots in slot order from 0), the same bits on a second
+    launch, and row N exactly 0. Both timed by CUDA events beside the plain
+    chain on the card (its two index_selects; its two index_add_s), the
+    bound counting each byte the pair needs once: the slots' indices, the
+    depth order and packed rows of the gaussians a live slot reaches and
+    the zero row in, the entry rows out (forward); every gaussian's depth
+    order entry and slot range, the live slots' slot_of entries and
+    gradient rows in, the packed rows' gradient out (backward); and the
+    host-clock ms that the slot tables add to the frame's binning. Returns
+    the two kernels' numbers."""
+    with torch.no_grad():
+        e = rasterize.build_entries(g, cam, W, H, cfg)
+        pre, packed = rasterize.preprocess_lib.preprocess_packed(g, cam, W,
+                                                                 H)
+        m_cap = -(-int(g.capacity * cfg.pairs_per_gaussian) // cfg.chunk) \
+            * cfg.chunk
+        b = rasterize.binning_lib.bin_gaussians(
+            pre.mean2d, pre.depth, pre.radius, rx=pre.rx, ry=pre.ry,
+            image_width=W, image_height=H, tile_h=cfg.tile_h,
+            tile_w=cfg.tile_w, m_cap=m_cap, align=cfg.chunk,
+            pad_cap=None if cfg.pad_cap < 0 else cfg.pad_cap,
+            slot_tables=True, **rasterize.cull_kw(pre, cfg))
+    check(torch.equal(b.gidx_sorted, e.binning.gidx_sorted),
+          "the slot-table binning is not build_entries' layout")
+    perm, gidx = b.perm, b.gidx_sorted
+    n, m = perm.numel(), gidx.numel()
+    live = gidx < n
+    n_live = int(live.sum())
+    want = gather_entries_plain(packed, perm, gidx)
+    got = gather_entries_fwd_cuda(packed, perm, gidx)
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32))
+          and torch.equal(e.entries.view(torch.int32),
+                          want.view(torch.int32)),
+          "gather_entries_fwd is not the plain chain bit for bit")
+    d = torch.tensor(rng.standard_normal((m, 16)).astype(np.float32),
+                     device=g.device)
+    kern = gather_entries_bwd_cuda(d, b)
+    again = gather_entries_bwd_cuda(d, b)
+    check(not kern[n].any(), "gather_entries_bwd: row N is not 0")
+    check(torch.equal(kern.view(torch.int32), again.view(torch.int32)),
+          "gather_entries_bwd differs between two launches")
+    x_cpu = packed.cpu().requires_grad_()
+    cpu = torch.autograd.grad(gather_entries_plain(
+        x_cpu, perm.cpu(), gidx.cpu()), x_cpu, d.cpu())[0]
+    check(torch.equal(kern[:n].cpu().view(torch.int32),
+                      cpu[:n].view(torch.int32)),
+          "gather_entries_bwd is not the CPU chain bit for bit")
+    x = packed.clone().requires_grad_()
+    plain_out = gather_entries_plain(x, perm, gidx)
+    fwd_ms = median_ms(lambda: gather_entries_fwd_cuda(packed, perm, gidx),
+                       20)
+    bwd_ms = median_ms(lambda: gather_entries_bwd_cuda(d, b), 20)
+    plain_fwd_ms = median_ms(lambda: gather_entries_plain(packed, perm, gidx),
+                             20)
+    plain_bwd_ms = median_ms(lambda: torch.autograd.grad(
+        plain_out, x, d, retain_graph=True), 20)
+    fwd_dev = kernel_device_ms(
+        lambda: gather_entries_fwd_cuda(packed, perm, gidx), 5)
+    bwd_dev = kernel_device_ms(lambda: gather_entries_bwd_cuda(d, b), 5)
+
+    def bin_frame(slot_tables):
+        return rasterize.binning_lib.bin_gaussians(
+            pre.mean2d, pre.depth, pre.radius, rx=pre.rx, ry=pre.ry,
+            image_width=W, image_height=H, tile_h=cfg.tile_h,
+            tile_w=cfg.tile_w, m_cap=m_cap, align=cfg.chunk,
+            pad_cap=None if cfg.pad_cap < 0 else cfg.pad_cap,
+            slot_tables=slot_tables, **rasterize.cull_kw(pre, cfg))
+    # what the slot tables add to a training frame's binning
+    tables_ms = median_ms(lambda: bin_frame(True), 10) \
+        - median_ms(lambda: bin_frame(False), 10)
+    # the gaussians some live slot reaches: their perm entries and rows
+    reached = int(torch.unique(perm[gidx[live]]).numel())
+    fwd_bnd = bound(m * 8 + reached * 8 + (reached + 1) * 64 + m * 64, 0)
+    bwd_bnd = bound(n * 24 + n_live * (8 + 64) + (n + 1) * 64, 0)
+    longest = int(b.g_counts.max())
+    print(f"kernel vs plain: gather pair at {n} gaussians, {W}x{H}: {m} "
+          f"slots, {n_live} live ({1 - n_live / m:.3f} dead), the longest "
+          f"gaussian {longest} slots; forward bit for bit the plain chain; "
+          f"backward bit for bit the CPU chain and the same bits twice, row "
+          f"N 0; forward {fwd_ms:.4f} ms (device {fwd_dev:.4f}, bound "
+          f"{fwd_bnd['bound_ms']:.4f}, bytes) against the chain's "
+          f"{plain_fwd_ms:.4f}; backward {bwd_ms:.4f} ms (device "
+          f"{bwd_dev:.4f}, bound {bwd_bnd['bound_ms']:.4f}, bytes) against "
+          f"the chain's {plain_bwd_ms:.4f}; the slot tables add "
+          f"{tables_ms:.4f} ms to the frame's binning", flush=True)
+    return (dict(max_abs_err=0.0, ms=fwd_ms, device_ms=fwd_dev,
+                 plain_ms=plain_fwd_ms, **fwd_bnd),
+            dict(max_abs_err=0.0, ms=bwd_ms, device_ms=bwd_dev,
+                 plain_ms=plain_bwd_ms, **bwd_bnd))
+
+
 def check_ssim(dev, rng):
     """The SSIM map, its partial maps and its backward against the plain
     SSIM on the card at 3x1080x1920, under the mean's uniform cotangent and
@@ -1078,9 +1180,21 @@ KERNELS = {
                            per_slab_render=0, per_band_render=0,
                            per_sharded_step=0, per_eval_view=0,
                            per_view_frame=0, replaces=[]),
+    # the port's own pair (no TPU kernel): the entry gather of every single
+    # render and its backward, also where the preprocess is plain; the
+    # split and sharded paths gather on their own
+    "gather_entries_fwd": dict(wrapper=gather_entries_fwd_cuda, per_step=1,
+                               per_slab_render=0, per_band_render=0,
+                               per_sharded_step=0, per_eval_view=1,
+                               per_view_frame=1, replaces=[]),
+    "gather_entries_bwd": dict(wrapper=gather_entries_bwd_cuda, per_step=1,
+                               per_slab_render=0, per_band_render=0,
+                               per_sharded_step=0, per_eval_view=0,
+                               per_view_frame=0, replaces=[]),
 }
 # the kernels only a backward launches
-BACKWARD_ONLY = ("composite_bwd", "scan", "preprocess_bwd")
+BACKWARD_ONLY = ("composite_bwd", "scan", "preprocess_bwd",
+                 "gather_entries_bwd")
 # the kernels only a loss launches
 LOSS_ONLY = ("ssim_fwd", "ssim_bwd")
 
@@ -1862,6 +1976,7 @@ def row_cull_phase(g, cam, gt, cfg, rng):
     want = {name: k["per_step"] * n for name, k in KERNELS.items()}
     want["composite_fwd"] += n                  # the frames
     want["preprocess_fwd"] += n
+    want["gather_entries_fwd"] += n
     check(culled_total == want, f"{n} culled frames and {n} culled "
           f"steps launched {culled_total}, expected {want}")
     print(f"row_cull {W}x{H}, {N_GAUSS} gaussians, SH 3 (phase 5's scene): "
@@ -2212,7 +2327,9 @@ def expected_loop_launches(steps, renders, sharded_shards=0):
     else:
         want = dict(composite_fwd=steps + renders, composite_bwd=steps,
                     ssim_fwd=steps, ssim_bwd=steps,
-                    preprocess_fwd=steps + renders, preprocess_bwd=steps)
+                    preprocess_fwd=steps + renders, preprocess_bwd=steps,
+                    gather_entries_fwd=steps + renders,
+                    gather_entries_bwd=steps)
     return {name: want.get(name, 0) for name in KERNELS}
 
 
@@ -2855,8 +2972,9 @@ def bridge_phase(dev, root, src, state, ckpt):
               f"bridge: {len(frames)} frames, errors {errors}")
         view_launches = read_launches()
         # the python paths' frame brings its colours and covariances: the
-        # plain preprocess
-        want = {n: 2 if n == "composite_fwd" else 0 for n in KERNELS}
+        # plain preprocess, and the gather kernel
+        want = {n: 2 if n in ("composite_fwd", "gather_entries_fwd") else 0
+                for n in KERNELS}
         want["preprocess_fwd"] = 1
         check(view_launches == want,
               f"bridge launches {view_launches}, expected {want}")
@@ -2954,8 +3072,8 @@ def free_port():
 
 @contextlib.contextmanager
 def deterministic():
-    """torch's deterministic algorithms (the entry gather's index_add_
-    backward without atomics) around the calls held bit for bit."""
+    """torch's deterministic algorithms around the calls held bit for
+    bit."""
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         yield
@@ -4364,7 +4482,9 @@ def synthetic_phase(dev, root):
                 "ssim_fwd": SYNTH_DRIVE_ITERS,
                 "ssim_bwd": SYNTH_DRIVE_ITERS,
                 "preprocess_fwd": SYNTH_DRIVE_ITERS + SYNTH_DRIVE_RENDERS,
-                "preprocess_bwd": SYNTH_DRIVE_ITERS}.get(name, 0)
+                "preprocess_bwd": SYNTH_DRIVE_ITERS,
+                "gather_entries_fwd": SYNTH_DRIVE_ITERS + SYNTH_DRIVE_RENDERS,
+                "gather_entries_bwd": SYNTH_DRIVE_ITERS}.get(name, 0)
         check(launches[name] == want, f"{name} launched {launches[name]} "
               f"times in the drive, expected {want}")
     check(r["overflow"] == 0, f"drive overflow {r['overflow']}")
@@ -4466,7 +4586,8 @@ SWEEP_SHAPES = ((32, 32, 64), (16, 16, 64), (8, 32, 64), (16, 32, 64),
 SWEEP_ROUNDS = 3           # rounds of one 7-step window per shape, in turns
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
 STEP_KERNELS = ("composite_fwd", "composite_bwd", "ssim_fwd", "ssim_bwd",
-                "preprocess_fwd", "preprocess_bwd")
+                "preprocess_fwd", "preprocess_bwd", "gather_entries_fwd",
+                "gather_entries_bwd")
 REDUCE_TOL = 1e-3          # the reductions, relative to the largest sum
 # calls timed per variant of bench_scatter (the tool's default is the JAX
 # tool's 20): torch.cumsum along the rows of (4.8M, 16) takes 1.7 s a call
@@ -4550,8 +4671,9 @@ def bench_phase(dev, soak_ply):
 
 
 def profile_stages_phase(dev):
-    """13b: every stage's host, event and busy ms at 1080p; the compositor
-    stages' launches exact (a warm-up and profile_stages.ITERS calls)."""
+    """13b: every stage's host, event and busy ms at 1080p; the gather and
+    compositor stages' launches exact (a warm-up and profile_stages.ITERS
+    calls)."""
     from gsplat_tpu_torch.tools import profile_stages
 
     reset_launches()
@@ -4559,9 +4681,12 @@ def profile_stages_phase(dev):
     launches = read_launches()
     check(out["overflow"] == 0, f"profile_stages overflow {out['overflow']}")
     calls = 1 + profile_stages.ITERS
-    fwd, both = (profile_stages.STAGES[i].format(compositor="stream")
-                 for i in (4, 5))
-    for stage, want in ((fwd, dict(composite_fwd=calls)),
+    gather, vjp, fwd, both = (
+        profile_stages.STAGES[i].format(compositor="stream")
+        for i in (2, 3, 4, 5))
+    for stage, want in ((gather, dict(gather_entries_fwd=calls)),
+                        (vjp, dict(gather_entries_bwd=calls)),
+                        (fwd, dict(composite_fwd=calls)),
                         (both, dict(composite_fwd=calls,
                                     composite_bwd=calls))):
         for name in KERNELS:
@@ -4853,6 +4978,8 @@ def main():
     numbers["ssim_fwd"], numbers["ssim_bwd"] = check_ssim(dev, check_rng)
     numbers["preprocess_fwd"], numbers["preprocess_bwd"] = check_preprocess(
         tg, tcam, check_rng)
+    numbers["gather_entries_fwd"], numbers["gather_entries_bwd"] = \
+        check_gather(tg, tcam, tcfg, check_rng)
 
     # ---- phase 3c: the kernels as the slab and band paths call them
     slab_numbers, m_cap, pairs = check_slab_kernels(tg, tcam, tcfg, check_rng)

@@ -67,6 +67,11 @@ class Binning(NamedTuple):
     g_offsets: Optional[torch.Tensor] = None  # (N,) int64 first presort
     #   entry of each gaussian (in perm's order)
     g_counts: Optional[torch.Tensor] = None   # (N,) int64 entries of each
+    # the entry gather's gradient table (ops/kernels/gather.py); None
+    # unless asked for. With g_offsets / g_counts it lists each gaussian's
+    # slots in the order of its pairs
+    slot_of: Optional[torch.Tensor] = None    # (m_cap,) int64 presort entry
+    #   -> the layout slot that holds it, -1 where none does
 
 
 def tile_rect(mean2d: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor,
@@ -248,6 +253,7 @@ def bin_gaussians(mean2d: torch.Tensor, depth: torch.Tensor,
                   tile_w: int, m_cap: int, align: int,
                   pad_cap: Optional[int] = None,
                   presort_tables: bool = False,
+                  slot_tables: bool = False,
                   tile_row_base: int = 0,
                   conic: Optional[torch.Tensor] = None,
                   t_cut: Optional[torch.Tensor] = None,
@@ -259,11 +265,12 @@ def bin_gaussians(mean2d: torch.Tensor, depth: torch.Tensor,
     sentinel entries to a multiple of it; the list has static length
     ``m_cap + pad_cap``, where ``pad_cap`` defaults to ``align`` × tiles.
     With ``presort_tables`` the result also carries ``inv_src``,
-    ``g_offsets`` and ``g_counts``. With ``tile_row_base`` the image is a
-    window of the frame that starts at that tile row (``tile_rect``); tile
-    ids are the window's own. With ``conic`` (N,3) and ``t_cut`` (N,) the
-    rectangles are culled per tile row into ``row_slots`` slots (module
-    docstring).
+    ``g_offsets`` and ``g_counts``; with ``slot_tables`` it carries
+    ``slot_of``, ``g_offsets`` and ``g_counts``. With ``tile_row_base`` the
+    image is a window of the frame that starts at that tile row
+    (``tile_rect``); tile ids are the window's own. With ``conic`` (N,3)
+    and ``t_cut`` (N,) the rectangles are culled per tile row into
+    ``row_slots`` slots (module docstring).
     """
     dev = mean2d.device
     n = mean2d.shape[0]
@@ -313,6 +320,19 @@ def bin_gaussians(mean2d: torch.Tensor, depth: torch.Tensor,
                                    padded_start, m_out)
 
     extras = {}
+    if slot_tables or presort_tables:
+        extras = dict(g_offsets=ex.offsets, g_counts=ex.counts)
+    if slot_tables:
+        # sorted entry i lies in the tile whose sorted range holds it and
+        # fills that tile's padded slot of the same rank, as _aligned_layout
+        # reads it, also in an overflow frame; it is presort entry order[i]
+        i = torch.arange(m_cap, device=dev)
+        t = torch.searchsorted(tile_start + tile_count, i, right=True)
+        tc = torch.clamp(t, max=n_tiles - 1)
+        slot = padded_start[tc] + i - tile_start[tc]
+        slot_of = torch.empty_like(i)
+        slot_of[order] = torch.where((t < n_tiles) & (slot < m_out), slot, -1)
+        extras["slot_of"] = slot_of
     if presort_tables:
         # presort entry e is the e-th pair in gaussian-major depth order; a
         # dead one (e >= total) points into the layout's dead tail, where
@@ -326,8 +346,7 @@ def bin_gaussians(mean2d: torch.Tensor, depth: torch.Tensor,
         e = torch.arange(m_cap, device=dev)
         inv_src = torch.clamp(num_padded + e - total, max=m_out - 1)
         inv_src[order] = torch.where(keep, dest, inv_src[order])
-        extras = dict(inv_src=inv_src, g_offsets=ex.offsets,
-                      g_counts=ex.counts)
+        extras["inv_src"] = inv_src
 
     # memory-safety clamp for overflow frames
     padded_start = torch.clamp(padded_start, max=m_out - align)

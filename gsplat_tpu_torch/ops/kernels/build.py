@@ -26,7 +26,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 KERNELS = ("composite_fwd", "composite_bwd", "slab_tmit", "scan", "ssim_fwd",
-           "ssim_bwd", "preprocess_fwd", "preprocess_bwd")
+           "ssim_bwd", "preprocess_fwd", "preprocess_bwd", "gather_entries_fwd",
+           "gather_entries_bwd")
 _csrc = [CSRC]      # the sources the wrappers launch: the last one
 
 

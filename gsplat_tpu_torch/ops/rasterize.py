@@ -5,13 +5,16 @@ gsplat_tpu/ops/rasterize.py ``render``.
 Everything runs on the device the gaussians lie on, and the whole path is
 differentiable on either: on the CPU the compositor is the plain PyTorch
 version under autograd; on the card it is the hand-written CUDA forward
-kernel, whose gradient is the CUDA backward kernel. The entry gather's
-gradient is ``index_add_``, which carries every entry row back to its
-gaussian's packed row; on the card it adds with atomics, in an order that
-varies from run to run. The other form of that gradient, which
-gaussian-sharded storage uses (parallel/sharded.py), is the difference of
-two blocked prefix sums of the entry gradients in presort order
-(``masked_presort_prefix``, ``_prefix_between``; csrc/scan.cu on the card).
+kernel, whose gradient is the CUDA backward kernel. The entry gather
+(``build_entries``) is the plain ``index_select`` chain on the CPU, whose
+gradient is ``index_add_``, and on the card the kernel pair of
+ops/kernels/gather.py, whose backward sums each gaussian's entry rows into
+its packed row without atomics, in the order of its pairs that the
+binning's slot tables give, the same on every run. The other form of
+that gradient, which gaussian-sharded storage uses (parallel/sharded.py),
+is the difference of two blocked prefix sums of the entry gradients in
+presort order (``masked_presort_prefix``, ``_prefix_between``;
+csrc/scan.cu on the card).
 """
 from __future__ import annotations
 
@@ -26,6 +29,8 @@ from gsplat_tpu_torch.ops import binning as binning_lib
 from gsplat_tpu_torch.ops import preprocess as preprocess_lib
 from gsplat_tpu_torch.ops.composite_ref import CompositeOut
 from gsplat_tpu_torch.ops.kernels.composite import composite_tiles
+from gsplat_tpu_torch.ops.kernels.gather import (gather_entries_cuda,
+                                                 gather_entries_plain)
 from gsplat_tpu_torch.ops.kernels.scan import blocked_cumsum_16
 from gsplat_tpu_torch.utils.general import full_f32_matmul
 
@@ -186,21 +191,21 @@ def build_entries(gaussians: GaussianParams, cam: CameraView,
         alpha_min=cfg.alpha_min, mean2d_tap=mean2d_tap,
         cov3d_precomp=cov3d_precomp, colors_precomp=override_color)
 
+    # the card's gather kernel pair takes the packed rows' gradient from
+    # the binning's slot tables
+    on_card = packed.device.type == "cuda"
     b = binning_lib.bin_gaussians(
         pre.mean2d.detach(), pre.depth.detach(), pre.radius.detach(),
         rx=pre.rx.detach(), ry=pre.ry.detach(), image_width=W,
         image_height=H, tile_h=cfg.tile_h, tile_w=cfg.tile_w, m_cap=m_cap,
         align=cfg.chunk, pad_cap=None if cfg.pad_cap < 0 else cfg.pad_cap,
-        **cull_kw(pre, cfg))
-    # per-gaussian rows in the binning's depth order; the extra row keeps
-    # the sentinel (= zero row) addressable. index_select, whose gradient
-    # is index_add_ (atomic adds): indexing with [] differentiates into
-    # index_put_ with accumulation, which sorts the indices and then walks
-    # each one's duplicates serially, and every dead slot of the layout
-    # addresses the one sentinel row
-    perm_ext = torch.cat([b.perm, b.perm.new_full((1,), cap)])
-    entries = packed.index_select(0, perm_ext).index_select(
-        0, b.gidx_sorted)
+        slot_tables=on_card and packed.requires_grad, **cull_kw(pre, cfg))
+    # the packed rows in the binning's depth order, slot by slot; a dead
+    # slot takes the zero row N
+    if on_card:
+        entries = gather_entries_cuda(packed, b)
+    else:
+        entries = gather_entries_plain(packed, b.perm, b.gidx_sorted)
     return Entries(pre=pre, binning=b, entries=entries,
                    n_tiles_x=n_tiles_x, n_tiles_y=n_tiles_y)
 

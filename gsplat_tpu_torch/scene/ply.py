@@ -7,6 +7,7 @@ channel-major, opacity, scale_0..2, rot_0..3; all f32 pre-activation values.
 from __future__ import annotations
 
 import os
+import threading
 from typing import Tuple
 
 import numpy as np
@@ -25,10 +26,37 @@ def _field_names(n_rest: int) -> list:
 def _read_header(f):
     header = []
     while True:
-        line = f.readline().decode("ascii").strip()
+        raw = f.readline()
+        if not raw:
+            raise ValueError(f"{f.name}: the PLY header ends before "
+                             f"end_header")
+        line = raw.decode("ascii").strip()
         header.append(line)
         if line == "end_header":
             return header
+
+
+def _read_rows(f, dtype: np.dtype, n: int) -> np.ndarray:
+    data = np.frombuffer(f.read(dtype.itemsize * n), dtype=dtype)
+    if len(data) != n:
+        raise ValueError(f"{f.name}: {len(data)} of the header's {n} rows")
+    return data
+
+
+def _write_whole(path: str, header: list, payload: bytes) -> None:
+    """Write the file under a temporary name beside ``path`` and rename it
+    into place, so that a reader (another rank reading the scene) finds no
+    file or the whole one."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    try:
+        with open(tmp, "wb") as f:
+            f.write(("\n".join(header) + "\n").encode("ascii"))
+            f.write(payload)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def save_gaussian_ply(path: str, xyz: np.ndarray, f_dc: np.ndarray,
@@ -36,7 +64,6 @@ def save_gaussian_ply(path: str, xyz: np.ndarray, f_dc: np.ndarray,
                       scaling: np.ndarray, rotation: np.ndarray) -> None:
     """Write pre-activation Gaussian params; f_rest (N,K-1,3) is stored
     channel-major, (N, 3·(K−1)) ordered rgb-major over coefficients."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     n = xyz.shape[0]
     n_rest = f_rest.shape[1] * 3
     f_rest_flat = np.transpose(f_rest, (0, 2, 1)).reshape(n, -1)
@@ -53,9 +80,8 @@ def save_gaussian_ply(path: str, xyz: np.ndarray, f_dc: np.ndarray,
     header = ["ply", "format binary_little_endian 1.0", f"element vertex {n}"]
     header += [f"property float {nm}" for nm in names]
     header += ["end_header"]
-    with open(path, "wb") as f:
-        f.write(("\n".join(header) + "\n").encode("ascii"))
-        f.write(np.ascontiguousarray(cols, dtype="<f4").tobytes())
+    _write_whole(path, header,
+                 np.ascontiguousarray(cols, dtype="<f4").tobytes())
 
 
 def load_gaussian_ply(path: str) -> dict:
@@ -73,7 +99,7 @@ def load_gaussian_ply(path: str) -> dict:
                     "uchar": "u1", "uint8": "u1", "int": "<i4"}
         dtype = np.dtype([(p[2], np_types[p[1]]) for p in props])
         if fmt == "binary_little_endian":
-            data = np.frombuffer(f.read(dtype.itemsize * n), dtype=dtype)
+            data = _read_rows(f, dtype, n)
         elif fmt == "ascii":
             data = np.loadtxt(f, dtype=np.float32, max_rows=n, ndmin=2)
             data = np.rec.fromarrays(data.T, dtype=np.dtype(
@@ -102,7 +128,6 @@ def load_gaussian_ply(path: str) -> dict:
 
 def save_point_ply(path: str, xyz: np.ndarray, rgb: np.ndarray) -> None:
     """Write an input point cloud PLY (x,y,z,nx,ny,nz,red,green,blue)."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     n = xyz.shape[0]
     dtype = np.dtype([("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
                       ("nx", "<f4"), ("ny", "<f4"), ("nz", "<f4"),
@@ -115,9 +140,7 @@ def save_point_ply(path: str, xyz: np.ndarray, rgb: np.ndarray) -> None:
               "property float nx", "property float ny", "property float nz",
               "property uchar red", "property uchar green",
               "property uchar blue", "end_header"]
-    with open(path, "wb") as f:
-        f.write(("\n".join(header) + "\n").encode("ascii"))
-        f.write(rec.tobytes())
+    _write_whole(path, header, rec.tobytes())
 
 
 def load_point_ply(path: str) -> Tuple[np.ndarray, np.ndarray]:
@@ -132,7 +155,7 @@ def load_point_ply(path: str) -> Tuple[np.ndarray, np.ndarray]:
                     "int": "<i4", "uint": "<u4", "short": "<i2",
                     "ushort": "<u2", "char": "i1"}
         dtype = np.dtype([(p[2], np_types[p[1]]) for p in props])
-        data = np.frombuffer(f.read(dtype.itemsize * n), dtype=dtype)
+        data = _read_rows(f, dtype, n)
     xyz = np.stack([np.asarray(data[c], np.float32) for c in "xyz"], axis=1)
     if "red" in dtype.names:
         rgb = np.stack([np.asarray(data[c], np.float32)

@@ -221,6 +221,8 @@ def launch_counts():
     """Every CUDA kernel wrapper's launch count since its last reset."""
     from gsplat_tpu_torch.ops.kernels.composite import (
         composite_bwd_cuda, composite_fwd_cuda, slab_transmittance_cuda)
+    from gsplat_tpu_torch.ops.kernels.gather import (gather_entries_bwd_cuda,
+                                                     gather_entries_fwd_cuda)
     from gsplat_tpu_torch.ops.kernels.preprocess import (preprocess_bwd_cuda,
                                                          preprocess_fwd_cuda)
     from gsplat_tpu_torch.ops.kernels.scan import blocked_cumsum_16_cuda
@@ -232,7 +234,9 @@ def launch_counts():
             "ssim_fwd": ssim_fwd_cuda.launches,
             "ssim_bwd": ssim_bwd_cuda.launches,
             "preprocess_fwd": preprocess_fwd_cuda.launches,
-            "preprocess_bwd": preprocess_bwd_cuda.launches}
+            "preprocess_bwd": preprocess_bwd_cuda.launches,
+            "gather_entries_fwd": gather_entries_fwd_cuda.launches,
+            "gather_entries_bwd": gather_entries_bwd_cuda.launches}
 
 
 def launches_since(before):

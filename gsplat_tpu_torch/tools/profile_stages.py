@@ -12,10 +12,15 @@ card prints the host clock to ``torch.cuda.synchronize``, CUDA events
 around the same calls, and the device busy time and op count of a call
 from the profiler over 10 more; the CPU prints the host clock alone. The
 binning runs at the right-sized capacity ceil(1.3 x pairs), as the JAX
-tool's does;
-the compositor stages run on both devices, on the card through the CUDA
-kernels (the JAX tool times them on the TPU only, after re-binning into
-its stream kernel's strips, which the CUDA compositor does not have).
+tool's does. The gather and its backward run on the card as the render
+path runs them, through the pair csrc/gather_entries_fwd.cu and
+csrc/gather_entries_bwd.cu (its slot tables built outside the timed
+calls), and on the CPU as the plain chain (two ``index_select``s; two
+``index_add_``s); the rows are packed outside their timed calls, since on
+the render path the preprocess kernel packs them. The compositor stages run on both devices, on the card
+through the CUDA kernels (the JAX tool times them on the TPU only, after
+re-binning into its stream kernel's strips, which the CUDA compositor does
+not have).
 """
 from __future__ import annotations
 
@@ -51,6 +56,9 @@ def run(dev, *, n=None, W=None, H=None, iters=ITERS):
     from gsplat_tpu_torch.ops import binning as binning_lib
     from gsplat_tpu_torch.ops import losses
     from gsplat_tpu_torch.ops import preprocess as preprocess_lib
+    from gsplat_tpu_torch.ops.kernels.gather import (gather_entries_bwd_cuda,
+                                                     gather_entries_fwd_cuda,
+                                                     gather_entries_plain)
     from gsplat_tpu_torch.ops.preprocess import pack_entries
     from gsplat_tpu_torch.ops.rasterize import composite_dispatch, render
     from gsplat_tpu_torch.train import trainer
@@ -91,11 +99,11 @@ def run(dev, *, n=None, W=None, H=None, iters=ITERS):
         pre = pre_fn()
         stage(STAGES[0], pre_fn)
 
-        def bin_fn(m_cap):
+        def bin_fn(m_cap, slot_tables=False):
             return binning_lib.bin_gaussians(
                 pre.mean2d, pre.depth, pre.radius, rx=pre.rx, ry=pre.ry,
                 image_width=W, image_height=H, tile_h=th, tile_w=tw,
-                m_cap=m_cap, align=G)
+                m_cap=m_cap, align=G, slot_tables=slot_tables)
 
         probe = bin_fn(round_up(int(n * cfg.pairs_per_gaussian), G))
         m_cap = round_up(int(int(probe.num_pairs) * 1.3), G)
@@ -107,18 +115,32 @@ def run(dev, *, n=None, W=None, H=None, iters=ITERS):
               f"m_cap={m_cap} M_out={out['m_out']}", flush=True)
         stage(STAGES[1], lambda: bin_fn(m_cap))
 
-        perm_ext = torch.cat([b.perm, b.perm.new_full((1,), g.capacity)])
+        # the rows are packed outside the timed calls: on the render path
+        # the preprocess kernel writes them
+        packed = pack_entries(pre)
+        on_card = dev.type == "cuda"
 
         def gather():
-            return pack_entries(pre).index_select(0, perm_ext).index_select(
-                0, b.gidx_sorted)
+            if on_card:
+                return gather_entries_fwd_cuda(packed, b.perm, b.gidx_sorted)
+            return gather_entries_plain(packed, b.perm, b.gidx_sorted)
         entries = gather()
         stage(STAGES[2], gather)
-        # the gather's backward as autograd runs it for build_entries'
-        # index_select: one index_add_ of every entry row into its row
-        stage(STAGES[3], lambda: torch.zeros(
-            (g.capacity + 1, 16), device=dev).index_add_(
-                0, b.gidx_sorted, entries))
+
+        # the gather's backward as build_entries' gradient runs it: the
+        # backward kernel on the card, over the slot tables that a
+        # training frame's binning adds, the plain chain's two index_add_s
+        # (into the depth-ordered rows, then into the packed rows) on the CPU
+        b_tables = bin_fn(m_cap, slot_tables=True) if on_card else None
+
+        def gather_vjp():
+            if on_card:
+                return gather_entries_bwd_cuda(entries, b_tables)
+            perm_ext = torch.cat([b.perm, b.perm.new_full((1,), g.capacity)])
+            rows = torch.zeros((g.capacity + 1, 16), device=dev)
+            return torch.zeros_like(rows).index_add_(
+                0, perm_ext, rows.index_add_(0, b.gidx_sorted, entries))
+        stage(STAGES[3], gather_vjp)
 
         def comp(e):
             return composite_dispatch(e, b.tile_start, b.tile_count, cfg,

@@ -33,6 +33,14 @@ version on the same inputs:
   and the edge rows of tests/torch_preprocess_cases.py; the backward the
   same bits twice; ``render`` launching each kernel once a call, and the
   plain path with ``override_color``;
+- the entry gather's pair (csrc/gather_entries_fwd.cu,
+  csrc/gather_entries_bwd.cu) against the plain ``index_select`` chain at
+  1297x840 and 200,000 splats, with and without row culling: the forward
+  bit for bit, the backward bit for bit the chain's ``index_add_``s on the
+  CPU (both add a row's slots in slot order) and the same bits twice, row
+  N 0; ``render`` launching each once a call, also under torch's
+  deterministic algorithms; a train step on the pair against the same on
+  the plain chain, Adam's moments within the gradient gate;
 - the blocked prefix sum: against a float64 cumsum no more than twice as far
   as ``torch.cumsum`` in f32 is, exact on integers, the same bits on a
   second launch; the sharded renders on the card against the same on the
@@ -58,8 +66,10 @@ from gsplat_tpu_torch.ops import ssim as tssim
 from gsplat_tpu_torch.ops.composite_ref import (composite_tiles_plain,
                                                 cull_rects_plain,
                                                 slab_transmittance_plain)
+from gsplat_tpu_torch.ops import binning as tbin
 from gsplat_tpu_torch.ops import preprocess as tpre
 from gsplat_tpu_torch.ops.kernels import composite as tcomp
+from gsplat_tpu_torch.ops.kernels import gather as kgather
 from gsplat_tpu_torch.ops.kernels import preprocess as kpre
 from gsplat_tpu_torch.ops.kernels import scan as kscan
 from gsplat_tpu_torch.ops.kernels import ssim as kssim
@@ -68,6 +78,7 @@ from gsplat_tpu_torch.train import trainer
 
 from torch_cull_cases import CFG as CULL_CFG
 from torch_cull_cases import KINDS, frame
+from torch_gather_cases import bits
 from torch_preprocess_cases import CASE_IDS, CASES
 from torch_preprocess_cases import H as PRE_H
 from torch_preprocess_cases import W as PRE_W
@@ -304,6 +315,152 @@ def test_render_on_card_launches_the_preprocess_kernels(cuda_device):
         want = rasterize.render(gc, camc, 96, 64, bg.cpu(), cfg, clamp=False,
                                 override_color=colors).image
     torch.testing.assert_close(img.cpu(), want, **IMG_TOL)
+
+
+def _wide_scene(device, n, seed=5):
+    """n gaussians at a trained scene's density in a 1297x840 frame, each a
+    few tiles wide, made with numpy."""
+    rng = np.random.default_rng(seed)
+    xyz = rng.uniform(-1.0, 1.0, (n, 3)).astype(np.float32) \
+        * np.array([3.5, 2.4, 1.0], np.float32)
+    xyz[:, 2] += 6.0
+    arrays = dict(
+        xyz=xyz, f_dc=rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32),
+        f_rest=(0.1 * rng.standard_normal((n, 15, 3))).astype(np.float32),
+        scaling=rng.uniform(-5.0, -3.5, (n, 3)).astype(np.float32),
+        rotation=rng.standard_normal((n, 4)).astype(np.float32),
+        opacity=rng.uniform(-1.0, 3.0, n).astype(np.float32))
+    return (gm.from_numpy(arrays, device=device),
+            CameraView.create(np.eye(3), np.zeros(3), 1.0, 0.7,
+                              device=device))
+
+
+@pytest.mark.parametrize("row_cull", [False, True], ids=["rect", "row_cull"])
+def test_gather_pair_matches_the_plain_chain_at_full_width(row_cull,
+                                                           cuda_device):
+    """The entry gather's pair against the plain chain on the card, at
+    1297x840 and 200,000 splats: the forward bit for bit (a copy), and
+    ``build_entries``' entries too; the backward under a cotangent of the
+    scale spread of a gradient bit for bit the chain's two ``index_add_``s
+    on the CPU, which add each row's slots in slot order from 0 as the
+    kernel does, the same bits on a second launch, and row N exactly 0."""
+    W, H, n = 1297, 840, 200_000
+    g, cam = _wide_scene(cuda_device, n)
+    cfg = RasterizerConfig(row_cull=row_cull)
+    with torch.no_grad():
+        e = rasterize.build_entries(g, cam, W, H, cfg)
+        pre, packed = tpre.preprocess_packed(g, cam, W, H)
+        m_cap = -(-int(n * cfg.pairs_per_gaussian) // cfg.chunk) * cfg.chunk
+        b = tbin.bin_gaussians(
+            pre.mean2d, pre.depth, pre.radius, rx=pre.rx, ry=pre.ry,
+            image_width=W, image_height=H, tile_h=cfg.tile_h,
+            tile_w=cfg.tile_w, m_cap=m_cap, align=cfg.chunk, slot_tables=True,
+            **rasterize.cull_kw(pre, cfg))
+    assert torch.equal(b.gidx_sorted, e.binning.gidx_sorted)
+    assert int(b.overflow) == 0
+    live = b.gidx_sorted < n
+    assert 0 < int(live.sum()) < live.numel() and int(b.num_pairs) > n
+    want = kgather.gather_entries_plain(packed, b.perm, b.gidx_sorted)
+    got = kgather.gather_entries_fwd_cuda(packed, b.perm, b.gidx_sorted)
+    torch.cuda.synchronize()
+    assert torch.equal(bits(got), bits(want))
+    assert torch.equal(bits(e.entries), bits(want))
+    rng = np.random.default_rng(7)
+    m = b.gidx_sorted.numel()
+    d = torch.tensor(rng.standard_normal((m, 16)).astype(np.float32)
+                     * 10.0 ** rng.uniform(-3, 3, (m, 1)).astype(np.float32),
+                     device=cuda_device)
+    x = packed.cpu().requires_grad_()
+    plain = torch.autograd.grad(kgather.gather_entries_plain(
+        x, b.perm.cpu(), b.gidx_sorted.cpu()), x, d.cpu())[0]
+    kern = kgather.gather_entries_bwd_cuda(d, b)
+    again = kgather.gather_entries_bwd_cuda(d, b)
+    torch.cuda.synchronize()
+    assert torch.equal(bits(kern), bits(again))
+    assert torch.equal(bits(kern[n]), bits(torch.zeros(16, device=cuda_device)))
+    assert float(plain[n].abs().sum()) > 0        # the dead slots' rows
+    assert torch.equal(bits(kern[:n].cpu()), bits(plain[:n]))
+
+
+def test_render_on_card_launches_the_gather_pair(cuda_device):
+    """``render`` with a gradient: one forward launch of the gather, one
+    backward launch in the backward; with ``override_color`` (plain
+    preprocess) the gather still launches; under torch's deterministic
+    algorithms both launch too, and the backward gives the packed rows'
+    gradient the same bits as without them."""
+    g, cam = _scene(cuda_device)
+    cfg = _cfg(32, 32, 64)
+    bg = torch.full((3,), 0.25, device=cuda_device)
+    f0, b0 = (kgather.gather_entries_fwd_cuda.launches,
+              kgather.gather_entries_bwd_cuda.launches)
+    grads = []
+    for deterministic in (False, True):
+        torch.use_deterministic_algorithms(deterministic, warn_only=True)
+        try:
+            gg, leaves = with_leaves(g)
+            e = rasterize.build_entries(gg, cam, 96, 64, cfg)
+            d = torch.tensor(np.random.default_rng(6).standard_normal(
+                tuple(e.entries.shape)), dtype=torch.float32,
+                device=cuda_device)
+            grads.append(torch.autograd.grad(e.entries, leaves["xyz"], d)[0])
+        finally:
+            torch.use_deterministic_algorithms(False)
+    assert torch.equal(bits(grads[0]), bits(grads[1]))
+    assert float(grads[0].abs().max()) > 0
+    assert (kgather.gather_entries_fwd_cuda.launches,
+            kgather.gather_entries_bwd_cuda.launches) == (f0 + 2, b0 + 2)
+    gg, leaves = with_leaves(g)
+    out = rasterize.render(gg, cam, 96, 64, bg, cfg, clamp=False)
+    assert kgather.gather_entries_fwd_cuda.launches == f0 + 3
+    out.image.mean().backward()
+    assert kgather.gather_entries_bwd_cuda.launches == b0 + 3
+    assert float(leaves["xyz"].grad.abs().max()) > 0
+    colors = torch.tensor(np.random.default_rng(4).uniform(
+        0, 1, (g.capacity, 3)), dtype=torch.float32, device=cuda_device)
+    with torch.no_grad():
+        rasterize.render(g, cam, 96, 64, bg, cfg, override_color=colors)
+    assert (kgather.gather_entries_fwd_cuda.launches,
+            kgather.gather_entries_bwd_cuda.launches) == (f0 + 4, b0 + 3)
+
+
+def test_train_step_on_the_gather_pair_matches_the_plain_chain(
+        cuda_device, monkeypatch):
+    """One train_step on the card from the same state with the gather pair
+    and with the plain chain in its place: the loss to float32's last
+    digits, Adam's first moments (0.1 x the gradient) within the gradient
+    gate, whose reason here is the order of the plain chain's atomic
+    adds."""
+    W, H = 96, 64
+    rcfg = _cfg(32, 32, 64)
+    opt = OptimizationConfig(iterations=100, position_lr_max_steps=100)
+    gt = torch.tensor(np.random.default_rng(3).uniform(
+        0.2, 0.8, (3, H, W)).astype(np.float32), device=cuda_device)
+    ones = torch.ones((1, H, W), device=cuda_device)
+    zeros = torch.zeros((1, H, W), device=cuda_device)
+    g, cam = _scene(cuda_device)
+    out = []
+    for route in ("pair", "plain"):
+        if route == "plain":
+            monkeypatch.setattr(
+                rasterize, "gather_entries_cuda",
+                lambda p, b: kgather.gather_entries_plain(p, b.perm,
+                                                          b.gidx_sorted))
+        before = kgather.gather_entries_bwd_cuda.launches
+        out.append(trainer.train_step(
+            trainer.init_state(g, 1), cam, gt, ones, zeros, zeros,
+            torch.zeros(3, device=cuda_device), image_width=W,
+            image_height=H, opt=opt, rcfg=rcfg, spatial_lr_scale=1.0,
+            antialiasing=False, use_sparse_adam=False, train_test_exp=False,
+            use_depth=False))
+        assert kgather.gather_entries_bwd_cuda.launches \
+            == before + (route == "pair")
+    (pair, pair_aux), (plain, plain_aux) = out
+    torch.testing.assert_close(pair_aux.loss, plain_aux.loss, rtol=1e-6,
+                               atol=0)
+    for k in gm.TRAINABLE_FIELDS:
+        torch.testing.assert_close(pair.adam.mu[k], plain.adam.mu[k],
+                                   rtol=5e-3, atol=1e-7)
+    assert float(pair.adam.mu["xyz"].abs().max()) > 0
 
 
 def _frame_tables(shape, device):

@@ -22,7 +22,6 @@
 """
 import contextlib
 import ctypes
-import re
 import shutil
 import subprocess
 import types
@@ -37,6 +36,7 @@ from gsplat_tpu_torch.ops import rasterize
 from gsplat_tpu_torch.ops.kernels import build
 from gsplat_tpu_torch.ops.kernels import preprocess as kpre
 
+from torch_host_kernels import host_source
 from torch_preprocess_cases import CASES, CASE_IDS, H, W, same, scene, \
     with_leaves
 
@@ -210,15 +210,6 @@ void host_launch(unsigned blocks, unsigned threads, int smem, F f) {
   }
 }
 """
-_LAUNCH = re.compile(r"(\w+)<<<(.*?),(.*?),(.*?),.*?>>>\((.*?)\);", re.S)
-
-
-def host_source(src: str) -> str:
-    """A kernel source as host C++: each launch a ``host_launch`` of its
-    grid, its dynamic shared memory the shim's buffer."""
-    src = _LAUNCH.sub(r"host_launch(\2, \3, \4, [&]() { \1(\5); });", src)
-    return re.sub(r"extern __shared__ float (\w+)\[\];",
-                  r"float* \1 = g_smem.data();", src)
 
 
 @pytest.fixture(scope="module")
